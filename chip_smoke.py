@@ -7,24 +7,33 @@ Phases, one line each, any failure ends with a non-zero exit:
 1. environment: torch / CUDA / nvcc versions and the card's name and power
    limit; a GPU is required;
 2. build: compile the NN kernel library from ``icpflow_tpu_torch/csrc``;
-3. kernel vs plain: all four kernel instantiations against the plain
-   PyTorch version at the main path's shapes and at edge cases, with both
-   timed by CUDA events;
-4. main path: ``run_frame_pair`` at the bench configuration on the
+3. kernel vs plain: all six kernel instantiations against the plain
+   PyTorch version at the main paths' shapes (the stream's exact odometry
+   sweep included) and at edge cases (an empty row, duplicates, ragged M,
+   N = 1, an equidistant tie), with both timed by CUDA events;
+4. frame-pair path: ``run_frame_pair`` at the bench configuration on the
    synthetic held-out scene (seed 7, gaps 1 and 4, ~74k points per frame),
    twice per pair; the flow is checked against the GT flow and against the
    JAX package's numbers on the same input (``JAX_REFERENCE``, computed on
-   the CPU by ``tests/torch_smoke_reference.py``), and the kernel launch counts show
-   the path went through the kernel.
+   the CPU by ``tests/torch_smoke_reference.py``);
+5. stream path: ``StreamingEngine`` (ego odometry, CZM ground, joint
+   clustering, matching, flow) over the scene's five ~92k-point
+   sensor-frame scans at the same configuration, once under
+   ``ICPFLOW_NN_VARIANT=vpu2`` (the sentinel kernels) and once under the
+   default policy, after a two-frame warm-up; each frame is checked
+   against the GT pose and flow and against ``JAX_STREAM_REFERENCE``.
 
-The last lines are the card (nvidia-smi), the kernel table as JSON, and
-``{"ok": true, "device": {...}}``.
+Each path runs with the kernel launch counts set to 0 just before it and
+read just after; they show it went through the kernels and never through
+the plain NN version. The last lines are the card (nvidia-smi), the kernel
+table as JSON, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -50,27 +59,72 @@ JAX_REFERENCE = {
     4: dict(epe3d=0.0002953319053631276, epe3d_dynamic=0.002881204942241311,
             matched=8),
 }
+# The JAX package's StreamingEngine on the same five scans (XLA:CPU, jax
+# 0.9.0; `python3 tests/torch_smoke_reference.py --stream`), per frame: EPE3D
+# and dynamic EPE against the GT flow to the previous frame, matched pairs,
+# and the estimated pose's top 3x4 rows. Run at ego_map_capacity 65536 and
+# ego_src_capacity 4096 (map filled to 11,994 / 25,492 / 35,191 / 44,632 /
+# 51,816 points, source 3,283-3,643 points: nothing truncated, so the
+# padded capacity does not change the result).
+JAX_STREAM_REFERENCE = {
+    1: dict(epe3d=0.013951686210930347,
+            epe3d_dynamic=0.1459459662437439, matched=10,
+            pose=[[1.0000001192092896, -6.250304068089463e-06,
+                   3.2627264090479e-07, 1.1003608703613281],
+                  [6.2743852140556555e-06, 1.0000001192092896,
+                   2.9425666525639826e-06, 0.09985669702291489],
+                  [-3.2483305290043063e-07, -2.9436171189445304e-06,
+                   1.000000238418579, 0.0013318900018930435]]),
+    2: dict(epe3d=0.011594541370868683,
+            epe3d_dynamic=0.11839686334133148, matched=10,
+            pose=[[1.0, 9.21687842492247e-06,
+                   -1.8576744196252548e-06, 2.200517177581787],
+                  [-9.215525096806232e-06, 1.0,
+                   1.0052757716039196e-05, 0.2005940079689026],
+                  [1.8576121192381834e-06, -1.0052560355688911e-05,
+                   1.0, 0.0020303227938711643]]),
+    3: dict(epe3d=0.010762483812868595,
+            epe3d_dynamic=0.1090300902724266, matched=11,
+            pose=[[1.0000001192092896, -8.043035450100433e-06,
+                   -7.880803423176985e-07, 3.3009252548217773],
+                  [8.095012162812054e-06, 1.0,
+                   1.3404881428868975e-05, 0.3005104064941406],
+                  [7.881286592237302e-07, -1.3405154277279507e-05,
+                   1.0000001192092896, 0.0017898082733154297]]),
+    4: dict(epe3d=0.01044867467135191,
+            epe3d_dynamic=0.10541573166847229, matched=11,
+            pose=[[1.0, -1.8995189748238772e-05,
+                   -1.957845370270661e-07, 4.400069236755371],
+                  [1.8972081306856126e-05, 1.0,
+                   1.9051205526920967e-05, 0.3999721109867096],
+                  [1.9467093181901873e-07, -1.9051311028306372e-05,
+                   1.0, 0.002566578099504113]]),
+}
 # documented knife-edge band of the accuracy guardrails: sub-mm NN
-# differences (here: the elementwise form at dst >= 2048 on the card vs the
+# differences (here: the elementwise or sentinel form on the card vs the
 # expanded form everywhere on XLA:CPU) flip borderline ICP basins
 EPE_BAND = 0.005
 MATCHED_BAND = 1
+POSE_BAND_M = 0.01
+POSE_BAND_DEG = 0.1
 
-# kernel name -> (expanded form, points output, the TPU kernel it replaces,
-# main-path shape (B, N, M) where the path runs it)
+_TPU = "icpflow_tpu/ops/pallas/nn_kernel.py:"
+# kernel name -> (form, points output, the TPU kernel it replaces, shapes
+# (B, N, M) where the main paths run it; the first is the JSON row's)
 KERNELS = {
-    "nn_expanded_points": (True, True,
-                           "icpflow_tpu/ops/pallas/nn_kernel.py:217",
-                           (256, 512, 512)),      # ICP, small bucket
-    "nn_elementwise_points": (False, True,
-                              "icpflow_tpu/ops/pallas/nn_kernel.py:217",
-                              (32, 1024, 4096)),  # ICP, large bucket
-    "nn_expanded_index": (True, False,
-                          "icpflow_tpu/ops/pallas/nn_kernel.py:56",
-                          (2048, 512, 512)),      # scoring, small bucket
-    "nn_elementwise_index": (False, False,
-                             "icpflow_tpu/ops/pallas/nn_kernel.py:90",
-                             (256, 1024, 4096)),  # scoring, large bucket
+    "nn_expanded_points": ("expanded", True, _TPU + "217",
+                           [(256, 512, 512)]),       # ICP, small bucket
+    "nn_elementwise_points": ("elementwise", True, _TPU + "217",
+                              [(32, 1024, 4096)]),   # ICP, large bucket
+    "nn_expanded_index": ("expanded", False, _TPU + "56",
+                          [(2048, 512, 512)]),       # scoring, small bucket
+    "nn_elementwise_index": ("elementwise", False, _TPU + "90",
+                             [(256, 1024, 4096),     # scoring, large bucket
+                              (1, 16384, 262144)]),  # odometry, exact
+    "nn_sentinel_points": ("sentinel", True, _TPU + "175",
+                           [(32, 1024, 4096), (256, 512, 512)]),   # vpu2 ICP
+    "nn_sentinel_index": ("sentinel", False, _TPU + "125",
+                          [(256, 1024, 4096), (2048, 512, 512)]),  # vpu2
 }
 SOURCE = "icpflow_tpu_torch/csrc/nn_kernel.cu"
 
@@ -102,6 +156,52 @@ def scene_pairs(cfg, seed=SEED, gaps=GAPS):
         src, dst, gt, dyn = ego_aligned_pair(sample, j)
         out.append((j, src, dst, gt, dyn, cfg.translation_frame(j)))
     return out
+
+
+def stream_frames(seed=SEED):
+    """(scans, ego_gt, gt_flow, dynamic) of the held-out synthetic scene
+    as a sensor stream: the ``NUM_FRAMES`` (n_k, 3) sensor-frame scans of
+    ``make_sample``, their GT world poses (``ego_motion_gt``), and for each
+    frame k >= 1 the GT flow of its points back to frame k-1 in world
+    coordinates (the instance motions of ``bbox_tsfm``; zero for static
+    points) with the mover mask. Entry 0 of the last two is None."""
+    from icpflow_tpu_torch.data.synthetic import make_sample
+    buf = io.BytesIO()
+    make_sample(buf, num_frames=NUM_FRAMES, seed=seed)
+    buf.seek(0)
+    sample = dict(np.load(buf))
+    raw = sample["raw_points"]
+    ti = sample["time_indice"]
+    inst = sample["inst_labels"]
+    ego = sample["ego_motion_gt"].astype(np.float64)
+    tsfm = sample["bbox_tsfm"].astype(np.float64)
+    scans, gts, dyns = [], [None], [None]
+    for k in range(NUM_FRAMES):
+        sel = ti == k
+        scans.append(raw[sel].astype(np.float32))
+        if k == 0:
+            continue
+        world = raw[sel] @ ego[k, :3, :3].T + ego[k, :3, 3]
+        gt = np.zeros_like(world)
+        lab = inst[sel]
+        for i in np.unique(lab[lab > 0]):
+            m = lab == i
+            M = np.linalg.inv(tsfm[int(i), k - 1]) @ tsfm[int(i), k]
+            gt[m] = world[m] @ M[:3, :3].T + M[:3, 3] - world[m]
+        gts.append(gt.astype(np.float32))
+        dyns.append(sample["sd_labels"][sel] > 0)
+    return scans, sample["ego_motion_gt"], gts, dyns
+
+
+def pose_error(pose, ref):
+    """(translation error m, rotation error deg) of two (4,4) poses."""
+    pose = np.asarray(pose, np.float64)
+    ref = np.asarray(ref, np.float64)
+    r = pose[:3, :3].T @ ref[:3, :3]
+    skew = np.array([r[2, 1] - r[1, 2], r[0, 2] - r[2, 0], r[1, 0] - r[0, 1]])
+    ang = np.degrees(np.arctan2(np.linalg.norm(skew) / 2,
+                                (np.trace(r) - 1) / 2))
+    return float(np.linalg.norm(pose[:3, 3] - ref[:3, 3])), float(ang)
 
 
 def pair_metrics(flow, gt, dyn, pairs):
@@ -154,6 +254,22 @@ def _inputs(b, n, m, seed, *, dup=False, empty_row=False):
     return src.astype(np.float32), dst.astype(np.float32), mask
 
 
+def _tie_inputs(seed):
+    """Row 0, src 0 at the origin with exactly two nearest dst, at distance
+    1 and j = 2 and j = 9; every other dst lies 5-15 m away. The index
+    output takes j = 2 in every form; the points output dst[2], except the
+    sentinel form's, which takes dst[9] (lower j mod 8)."""
+    rng = np.random.default_rng(seed)
+    src = rng.uniform(-1.0, 1.0, (2, 40, 3))
+    src[0, 0] = 0.0
+    dst = rng.uniform(5.0, 15.0, (2, 300, 3)) * rng.choice([-1.0, 1.0],
+                                                         (2, 300, 3))
+    dst[0, 2] = (1.0, 0.0, 0.0)
+    dst[0, 9] = (0.0, 1.0, 0.0)
+    return (src.astype(np.float32), dst.astype(np.float32),
+            np.ones((2, 300), bool))
+
+
 def _time_ms(fn, iters=10):
     import torch
     fn()
@@ -168,25 +284,28 @@ def _time_ms(fn, iters=10):
     return a.elapsed_time(z) / iters
 
 
-def _compare(expanded, points, src, dst, mask):
-    """Kernel vs plain on the card. Returns the max abs dist/point error."""
+def _compare(form, points, src, dst, mask):
+    """Kernel vs plain on the card. Returns the max abs dist/point error,
+    the kernel's and the plain version's outputs, and the card tensors."""
     import torch
     from icpflow_tpu_torch.ops import knn
     from icpflow_tpu_torch.ops.cuda import nn_kernel
     s, d, mk = (torch.as_tensor(a, device="cuda") for a in (src, dst, mask))
-    ko, kd = nn_kernel.masked_nn_cuda(s, d, mk, expanded=expanded,
-                                      points=points)
-    po, pd = knn.masked_nn_plain(s, d, mk, expanded=expanded, points=points)
+    ko, kd = nn_kernel.masked_nn_cuda(s, d, mk, form=form, points=points)
+    po, pd = knn.masked_nn_plain(s, d, mk, form=form, points=points)
     torch.cuda.synchronize()
     # dist within 1e-5 m: kernel and plain run the same rounded fp32
     # sequence, so any difference is a fault, not noise (1e-5 m leaves
     # room only for the last bit of sqrt at ~100 m distances)
     err = float((kd - pd).abs().max()) if kd.numel() else 0.0
-    check(err <= 1e-5, f"dist differs by {err:.3g} m")
+    check(err <= 1e-5, f"{form}: dist differs by {err:.3g} m")
     if points:
         perr = float((ko - po).abs().max()) if ko.numel() else 0.0
-        check(perr <= 1e-5, f"points differ by {perr:.3g} m")
+        check(perr <= (0.0 if form == "sentinel" else 1e-5),
+              f"{form}: points differ by {perr:.3g} m")
         err = max(err, perr)
+    elif form == "sentinel":
+        check(bool((ko == po).all()), f"{int((ko != po).sum())} idx differ")
     else:
         bad = (ko != po)
         if bool(bad.any()):
@@ -200,54 +319,93 @@ def _compare(expanded, points, src, dst, mask):
             gap = (d2k - d2p).abs()[bad]
             check(bool((gap <= 1e-6 * d2p[bad].clamp(min=1e-30)).all()),
                   f"{int(bad.sum())} idx differ beyond FMA noise")
-    return err, (s, d, mk)
+    return err, (ko, kd), (po, pd), (s, d, mk)
+
+
+def _check_edges(name, form, points, k):
+    """Edge cases of one instantiation; returns the worst error."""
+    edge = [  # (b, n, m, kwargs)
+        (3, 200, 300, dict(empty_row=True)),   # a row with no valid dst
+        (2, 257, 512, dict(dup=True)),         # duplicates
+        (2, 129, 1500, {}),                    # M not a multiple of the chunk
+        (4, 1, 777, {}),                       # N = 1
+    ]
+    worst = 0.0
+    for b, n, m, kw in edge:
+        src, dst, mask = _inputs(b, n, m, 100 + k, **kw)
+        err, (ko, kd), (po, pd), _ = _compare(form, points, src, dst, mask)
+        worst = max(worst, err)
+        if not kw.get("empty_row"):
+            continue
+        if form == "sentinel":   # the sentinel stays a candidate
+            check(bool((kd[0] == pd[0]).all()) and float(kd[0].min()) > 1.7e6,
+                  f"{name}: empty row dist {float(kd[0].min())}")
+            check(bool((ko[0] == (1e6 if points else 0)).all()),
+                  f"{name}: empty row idx / points")
+        else:
+            check(bool((kd[0] == 1e15).all()), f"{name}: empty row dist")
+            check(bool((ko[0] == 0).all()), f"{name}: empty row idx / points")
+    src, dst, mask = _tie_inputs(300 + k)
+    err, (ko, kd), _, _ = _compare(form, points, src, dst, mask)
+    worst = max(worst, err)
+    check(float(kd[0, 0]) == 1.0, f"{name}: tie dist {float(kd[0, 0])}")
+    if points:
+        j = 9 if form == "sentinel" else 2
+        check(np.array_equal(ko[0, 0].cpu().numpy(), dst[0, j]),
+              f"{name}: tie took {ko[0, 0].tolist()}, not dst[{j}]")
+    else:
+        check(int(ko[0, 0]) == 2, f"{name}: tie took j={int(ko[0, 0])}")
+    return worst
 
 
 def phase_kernels():
     from icpflow_tpu_torch.ops import knn
     from icpflow_tpu_torch.ops.cuda import nn_kernel
     rows = {}
-    edge = [  # (b, n, m, kwargs): edge cases
-        (3, 200, 300, dict(empty_row=True)),   # a row with no valid dst
-        (2, 257, 512, dict(dup=True)),         # duplicates
-        (2, 129, 1500, {}),                    # M not a multiple of the chunk
-        (4, 1, 777, {}),                       # N = 1
-    ]
-    for k, (name, (expanded, points, _, shape)) in enumerate(KERNELS.items()):
-        worst = 0.0
-        for b, n, m, kw in edge:
-            src, dst, mask = _inputs(b, n, m, 100 + k, **kw)
-            err, (s, d, mk) = _compare(expanded, points, src, dst, mask)
+    for k, (name, (form, points, _, shapes)) in enumerate(KERNELS.items()):
+        worst = _check_edges(name, form, points, k)
+        times = []
+        for shape in shapes:
+            src, dst, mask = _inputs(*shape, 200 + k)
+            err, _, _, (s, d, mk) = _compare(form, points, src, dst, mask)
             worst = max(worst, err)
-            if kw.get("empty_row"):
-                o, dist = nn_kernel.masked_nn_cuda(s, d, mk, expanded=expanded,
-                                                   points=points)
-                check(bool((dist[0] == 1e15).all()), "empty row dist")
-                check(bool((o[0] == 0).all()), "empty row idx / points")
-        src, dst, mask = _inputs(*shape, 200 + k)
-        err, (s, d, mk) = _compare(expanded, points, src, dst, mask)
-        worst = max(worst, err)
-        ms = _time_ms(lambda: nn_kernel.masked_nn_cuda(
-            s, d, mk, expanded=expanded, points=points))
-        plain_ms = _time_ms(lambda: knn.masked_nn_plain(
-            s, d, mk, expanded=expanded, points=points), iters=3)
-        rows[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
-        print(f"[kernel] {name} B,N,M={shape}: max_abs_err {worst:.3g} "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms", flush=True)
+            ms = _time_ms(lambda: nn_kernel.masked_nn_cuda(
+                s, d, mk, form=form, points=points))
+            plain_ms = _time_ms(lambda: knn.masked_nn_plain(
+                s, d, mk, form=form, points=points), iters=3)
+            times.append(dict(shape=list(shape), ms=ms, plain_ms=plain_ms))
+            print(f"[kernel] {name} B,N,M={shape}: kernel {ms:.4f} ms plain "
+                  f"{plain_ms:.4f} ms", flush=True)
+        rows[name] = dict(max_abs_err=worst, ms=times[0]["ms"],
+                          plain_ms=times[0]["plain_ms"],
+                          shape=times[0]["shape"], times=times)
+        print(f"[kernel] {name}: max_abs_err {worst:.3g} over the shapes, "
+              "the edge cases and the tie", flush=True)
     return rows
+
+
+def _reset_counts():
+    from icpflow_tpu_torch.ops import knn
+    from icpflow_tpu_torch.ops.cuda import nn_kernel
+    nn_kernel.launches = 0
+    nn_kernel.variant_launches.clear()
+    knn.plain_calls = 0
+
+
+def _read_counts():
+    from icpflow_tpu_torch.ops import knn
+    from icpflow_tpu_torch.ops.cuda import nn_kernel
+    return (nn_kernel.launches, dict(nn_kernel.variant_launches),
+            knn.plain_calls)
 
 
 def phase_main_path(card):
     import torch
     from icpflow_tpu_torch import SceneFlowEngine, run_frame_pair
-    from icpflow_tpu_torch.ops import knn
-    from icpflow_tpu_torch.ops.cuda import nn_kernel
     cfg = bench_config()
     engine = SceneFlowEngine(cfg, device="cuda")
     pairs = scene_pairs(cfg)
-    nn_kernel.launches = 0
-    nn_kernel.variant_launches.clear()
-    knn.plain_calls = 0
+    _reset_counts()
     results = []
     for gap, src, dst, gt, dyn, tf in pairs:
         outs, times = [], []
@@ -264,11 +422,9 @@ def phase_main_path(card):
             outs.append(out)
             times.append(timings)
         results.append((gap, src, dst, gt, dyn, outs, times))
-    launches = nn_kernel.launches
-    per_kernel = dict(nn_kernel.variant_launches)
-    plain = knn.plain_calls
-    check(launches > 0, "the main path launched no NN kernel")
-    check(plain == 0, f"the main path called the plain NN {plain} times")
+    launches, per_kernel, plain = _read_counts()
+    check(launches > 0, "the frame-pair path launched no NN kernel")
+    check(plain == 0, f"the frame-pair path called the plain NN {plain} times")
 
     for gap, src, dst, gt, dyn, outs, times in results:
         out = outs[1]
@@ -296,6 +452,89 @@ def phase_main_path(card):
     return per_kernel
 
 
+def _run_stream(cfg, scans):
+    """One StreamingEngine over the scans on the card. Returns the outputs
+    and, per frame, the stage milliseconds (CUDA events) and the total."""
+    import torch
+    from icpflow_tpu_torch import StreamingEngine
+    eng = StreamingEngine(cfg, estimate_ego=True, device="cuda")
+    outs, times = [], []
+    for scan in scans:
+        timings = {}
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        outs.append(eng.process(scan, timings=timings))
+        z.record()
+        torch.cuda.synchronize()
+        timings["total"] = a.elapsed_time(z)
+        times.append(timings)
+    return outs, times
+
+
+def phase_stream(card):
+    """The stream path under vpu2 and under the default policy."""
+    cfg = bench_config()
+    scans, ego_gt, gts, dyns = stream_frames()
+    _run_stream(cfg, scans[:2])          # warm-up: solver handles, caches
+    counts = {}
+    for variant in ("vpu2", "auto"):
+        old = os.environ.get("ICPFLOW_NN_VARIANT")
+        os.environ["ICPFLOW_NN_VARIANT"] = variant
+        try:
+            _reset_counts()
+            outs, times = _run_stream(cfg, scans)
+            launches, per_kernel, plain = _read_counts()
+        finally:
+            if old is None:
+                os.environ.pop("ICPFLOW_NN_VARIANT", None)
+            else:
+                os.environ["ICPFLOW_NN_VARIANT"] = old
+        counts[variant] = per_kernel
+        check(outs[0] is None, "the first frame returned a result")
+        for k in range(1, len(scans)):
+            out, w = outs[k], times[k]
+            check(out.flow.shape == scans[k].shape,
+                  f"flow shape {out.flow.shape}")
+            check(bool(np.isfinite(out.flow).all()), "non-finite flow")
+            m = pair_metrics(out.flow, gts[k], dyns[k], out.pairs)
+            gt_t, gt_r = pose_error(out.pose, ego_gt[k])
+            ref = JAX_STREAM_REFERENCE[k]
+            ref_pose = np.eye(4)
+            ref_pose[:3] = ref["pose"]
+            d_t, d_r = pose_error(out.pose, ref_pose)
+            print(f"[stream {variant}] frame {k}: {len(scans[k])} pts | "
+                  f"pose err vs GT {gt_t:.4f} m {gt_r:.4f} deg, vs JAX "
+                  f"{d_t:.5f} m {d_r:.5f} deg | EPE3D {m['epe3d']:.5f} dyn "
+                  f"{m['epe3d_dynamic']:.5f} over {m['n_dynamic']} | matched "
+                  f"{m['matched']} | warm ms: ego {w['ego']:.1f} ground "
+                  f"{w['ground']:.1f} cluster {w['cluster']:.1f} track "
+                  f"{w['track']:.1f} flow {w['flow']:.1f} total "
+                  f"{w['total']:.1f} | {card}", flush=True)
+            check(d_t <= POSE_BAND_M and d_r <= POSE_BAND_DEG,
+                  f"{variant} frame {k} pose {d_t:.4f} m {d_r:.4f} deg "
+                  "from JAX")
+            for key in ("epe3d", "epe3d_dynamic"):
+                check(abs(m[key] - ref[key]) <= EPE_BAND,
+                      f"{variant} frame {k} {key} {m[key]:.5f} vs JAX "
+                      f"{ref[key]:.5f}")
+            check(abs(m["matched"] - ref["matched"]) <= MATCHED_BAND,
+                  f"{variant} frame {k} matched {m['matched']} vs JAX "
+                  f"{ref['matched']}")
+        check(launches > 0 and plain == 0,
+              f"{variant} stream: {launches} launches, {plain} plain NN calls")
+        check(per_kernel.get("nn_elementwise_index", 0) > 0,
+              f"{variant} stream: the odometry's exact NN ran no kernel")
+        print(f"[stream {variant}] NN kernel launches {launches} "
+              f"{per_kernel}, plain NN calls {plain}", flush=True)
+    for name in ("nn_sentinel_index", "nn_sentinel_points"):
+        check(counts["vpu2"].get(name, 0) > 0,
+              f"the vpu2 stream did not launch {name}")
+        check(counts["auto"].get(name, 0) == 0,
+              f"the default stream launched {name}")
+    return counts["vpu2"]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -307,12 +546,16 @@ def main():
     phase_build()
     rows = phase_kernels()
     per_kernel = phase_main_path(card)
-    for name in KERNELS:
-        check(per_kernel.get(name, 0) > 0,
-              f"kernel {name} was not launched by the main path")
-    table = [dict(name=name, route="cuda", source=SOURCE, replaces=rep,
-                  launches=per_kernel.get(name, 0), **rows[name])
-             for name, (_, _, rep, _) in KERNELS.items()]
+    stream_kernel = phase_stream(card)
+    table = []
+    for name, (form, _, rep, _) in KERNELS.items():
+        # launches: the frame-pair path's count; the sentinel kernels run
+        # only on the vpu2 stream, whose count they carry
+        path = stream_kernel if form == "sentinel" else per_kernel
+        check(path.get(name, 0) > 0,
+              f"kernel {name} was not launched by its main path")
+        table.append(dict(name=name, route="cuda", source=SOURCE,
+                          replaces=rep, launches=path[name], **rows[name]))
     print(f"[done] {time.time() - t0:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": table}))

@@ -3,7 +3,9 @@
 The same frozen dataclass, field for field, with the same defaults and
 presets, so a configuration carries across packages with
 ``config_from_dict(dataclasses.asdict(other_cfg))``. The pipeline has no
-weights: this dataclass is its whole state.
+weights: this dataclass is its whole static state. The state a stream
+carries across frames comes over from host arrays with
+``ops.ground.ground_state_from_arrays`` and ``EgoOdometry.from_arrays``.
 
 Fields that size buckets (``max_points_scene``, ``max_points``,
 ``num_clusters``, ``pairs_small``...) keep their meaning: the port pads and
@@ -111,7 +113,7 @@ class PipelineConfig:
     cluster_dedup_voxel: float = 0.0  # >0: DBSCAN on voxel representatives
     cluster_rep_cap: int = 65536     # representative bucket
 
-    # --- ego motion (not ported yet; kept for round-trips) ---
+    # --- ego motion (ops/ego.py) ---
     use_kiss_icp: bool = False
     ego_voxel_size: float = 0.64
     ego_map_per_voxel: int = 20

@@ -8,8 +8,8 @@ without CUDA.
 
 ``launches`` counts kernel launches made through :func:`masked_nn_cuda`,
 and ``variant_launches`` counts them per instantiation
-(``nn_{expanded|elementwise}_{index|points}``). Set them to 0 before a run
-and read them after, to show the run went through the kernel.
+(``nn_{expanded|elementwise|sentinel}_{index|points}``). Set them to 0
+before a run and read them after, to show the run went through the kernel.
 """
 
 from __future__ import annotations
@@ -31,6 +31,8 @@ SOURCE = _PKG / "csrc" / "nn_kernel.cu"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+FORMS = ("expanded", "elementwise", "sentinel")   # the C entry's form codes
 
 launches = 0
 variant_launches: collections.Counter = collections.Counter()
@@ -102,21 +104,23 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def kernel_name(expanded: bool, points: bool) -> str:
-    return (f"nn_{'expanded' if expanded else 'elementwise'}_"
-            f"{'points' if points else 'index'}")
+def kernel_name(form: str, points: bool) -> str:
+    return f"nn_{form}_{'points' if points else 'index'}"
 
 
 def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
-                   dst_mask: torch.Tensor, *, expanded: bool,
+                   dst_mask: torch.Tensor, *, form: str,
                    points: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel. Returns (idx (B,N) int32 | pts (B,N,3) f32,
     dist (B,N) f32).
 
-    src (B,N,3) and dst (B,M,3) float32, dst_mask (B,M) bool, all
-    contiguous on one CUDA device. Anything else raises ``ValueError``.
+    ``form`` is one of :data:`FORMS` (see ``ops/knn.py``). src (B,N,3) and
+    dst (B,M,3) float32, dst_mask (B,M) bool, all contiguous on one CUDA
+    device. Anything else raises ``ValueError``.
     """
     global launches
+    if form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
     for name, t, dt in (("src", src, torch.float32), ("dst", dst, torch.float32),
                         ("dst_mask", dst_mask, torch.bool)):
         if not t.is_cuda:
@@ -153,10 +157,10 @@ def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.icpflow_masked_nn(
             src.data_ptr(), dst.data_ptr(), dst_mask.data_ptr(), b, n, m,
-            int(expanded), int(points), out.data_ptr(), dist.data_ptr(),
+            FORMS.index(form), int(points), out.data_ptr(), dist.data_ptr(),
             stream)
     if err != 0:
         raise RuntimeError(f"masked_nn kernel launch failed: cudaError {err}")
     launches += 1
-    variant_launches[kernel_name(expanded, points)] += 1
+    variant_launches[kernel_name(form, points)] += 1
     return out, dist

@@ -11,9 +11,22 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 _EPS = 1e-9
+
+
+def scale_as_xla(x: torch.Tensor, divisor: float,
+                 factor: float = 1.0) -> torch.Tensor:
+    """``x / divisor * factor`` as XLA compiles it for constant operands:
+    one multiply by the fp32 constant ``(1 / divisor) * factor``, folded in
+    fp32. The reference's jitted code computes its voxel and CZM bin
+    indices so (XLA turns a division by a constant into a multiply by its
+    reciprocal), and the port does the same, so that values on a bin
+    boundary fall into the same bin."""
+    c = np.float32(np.float32(1.0) / np.float32(divisor)) * np.float32(factor)
+    return x * float(c)
 
 
 def transform_points(xyz: torch.Tensor, T: torch.Tensor) -> torch.Tensor:

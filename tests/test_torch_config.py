@@ -148,11 +148,25 @@ def test_no_silent_fallbacks(monkeypatch):
     x = torch.zeros((1, 4, 3))
     with pytest.raises(ValueError, match="CUDA"):
         nn_kernel.masked_nn_cuda(x, x, torch.ones((1, 4), dtype=torch.bool),
-                                 expanded=True, points=False)
-    # the unported vpu2 variant raises instead of running something else
+                                 form="expanded", points=False)
+    # vpu2 runs the sentinel form where the reference ran its Pallas kernels
+    # (non-exact, 128 <= m <= 8192) and the expanded form elsewhere; the
+    # exact sweep stays elementwise; an unknown value still raises
     monkeypatch.setenv("ICPFLOW_NN_VARIANT", "vpu2")
-    with pytest.raises(ValueError, match="vpu2"):
-        knn.masked_nn(x, x, torch.ones((1, 4), dtype=torch.bool))
+    for m in (128, 8192):
+        assert knn.sweep_form(m, False) == "sentinel"
+    for m in (127, 8193):
+        assert knn.sweep_form(m, False) == "expanded"
+    assert knn.sweep_form(4096, True) == "elementwise"
+    y = torch.ones((1, 128, 3))
+    _, dist = knn.masked_nn(x, y, torch.zeros((1, 128), dtype=torch.bool))
+    assert float(dist.min()) > 1e6           # the sentinel's distance
+    pts, _ = knn.masked_nn_points(x, y,
+                                  torch.zeros((1, 128), dtype=torch.bool))
+    assert bool((pts == 1e6).all())
+    monkeypatch.setenv("ICPFLOW_NN_VARIANT", "vpu3")
+    with pytest.raises(ValueError, match="vpu3"):
+        knn.masked_nn(x, y, torch.ones((1, 128), dtype=torch.bool))
     monkeypatch.delenv("ICPFLOW_NN_VARIANT")
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the no-GPU refusal cannot be shown")

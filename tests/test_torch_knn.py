@@ -56,7 +56,8 @@ def test_plain_matches_xla_sweep(exact):
     src, dst, mask = _cloud(0, expanded=not exact)
     ji, jd = jknn._masked_nn_xla(jnp.asarray(src), jnp.asarray(dst),
                                  jnp.asarray(mask), tile=128, exact=exact)
-    ti, td = tknn.masked_nn_plain(*_t(src, dst, mask), expanded=not exact,
+    ti, td = tknn.masked_nn_plain(*_t(src, dst, mask),
+                                  form="elementwise" if exact else "expanded",
                                   points=False, tile=128)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=ATOL)
@@ -71,7 +72,8 @@ def test_plain_matches_pallas_index_kernels_interpreted(variant):
                               jnp.asarray(mask), tn=128, tm=128,
                               interpret=True, variant=variant)
     ti, td = tknn.masked_nn_plain(*_t(src, dst, mask),
-                                  expanded=variant == "mxu", points=False)
+                                  form=tknn._VARIANT_FORM[variant],
+                                  points=False)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=ATOL)
 
@@ -83,7 +85,8 @@ def test_plain_matches_pallas_points_kernel_interpreted(variant):
                                      jnp.asarray(mask), tn=128, tm=128,
                                      interpret=True, variant=variant)
     tp, td = tknn.masked_nn_plain(*_t(src, dst, mask),
-                                  expanded=variant == "mxu", points=True)
+                                  form=tknn._VARIANT_FORM[variant],
+                                  points=True)
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=ATOL)
     assert (tp[0] == 0).all()
@@ -126,14 +129,74 @@ def test_form_policy_follows_the_accelerator(monkeypatch):
     ti, td = tknn.masked_nn(s, d, mk, tile=512)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=ATOL)
-    want = tknn.masked_nn_plain(s, d, mk, expanded=False, points=False)
+    want = tknn.masked_nn_plain(s, d, mk, form="elementwise", points=False)
     assert torch.equal(ti, want[0]) and torch.equal(td, want[1])
     monkeypatch.setenv("ICPFLOW_NN_VARIANT", "mxu")
     ti, td = tknn.masked_nn(s, d, mk)
-    want = tknn.masked_nn_plain(s, d, mk, expanded=True, points=False)
+    want = tknn.masked_nn_plain(s, d, mk, form="expanded", points=False)
     assert torch.equal(ti, want[0]) and torch.equal(td, want[1])
     assert tknn.pick_variant(512) == "mxu"
     monkeypatch.setenv("ICPFLOW_NN_VARIANT", "vpu")
-    assert not tknn._elementwise(100, False)
-    assert tknn._elementwise(512, False)
-    assert tknn._elementwise(100, True)
+    assert tknn.sweep_form(100, False) == "expanded"
+    assert tknn.sweep_form(512, False) == "elementwise"
+    assert tknn.sweep_form(100, True) == "elementwise"
+
+
+def _cloud_vpu2(seed, b=3, n=200, m=301):
+    """20 m clouds, M not a multiple of 8: row 0 has no valid dst, row 1
+    holds exact duplicates, and src point 0 of row 2 sits at the origin
+    with exactly two dst points at distance 1, at j=2 and j=9."""
+    src, dst, mask = _cloud(seed, b=b, n=n, m=m, expanded=False)
+    src[2, 0] = 0.0
+    dst[2, 2] = (1.0, 0.0, 0.0)
+    dst[2, 9] = (0.0, 1.0, 0.0)
+    mask[2] &= np.linalg.norm(dst[2], axis=1) > 1.0
+    mask[2, [2, 9]] = True
+    return src, dst, mask
+
+
+@pytest.mark.parametrize("points", [False, True])
+def test_plain_matches_pallas_vpu2_kernels_interpreted(points):
+    """The sentinel form (TPU kernels _nn_kernel_vpu2 / _nn_kernel_pts_vpu2,
+    tc=8): idx and points exact, dist within 1e-5 m, including the row with
+    no valid dst (sentinel distance ~1.73e6 and the sentinel point) and the
+    tie, which the index form gives to j=2 and the points form to j=9."""
+    src, dst, mask = _cloud_vpu2(6)
+    fn = masked_nn_points_pallas if points else masked_nn_pallas
+    jo, jd = fn(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(mask),
+                tn=128, tm=128, interpret=True, variant="vpu2", tc=8)
+    to, td = tknn.masked_nn_plain(*_t(src, dst, mask), form="sentinel",
+                                  points=points, tile=128)
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    np.testing.assert_allclose(td[1:].numpy(), np.asarray(jd)[1:], rtol=0,
+                               atol=ATOL)
+    # the empty row's ~1.73e6 m lies where one fp32 ulp is 0.125 m, and
+    # XLA:CPU may contract the sum of squares into FMAs: one ulp apart
+    np.testing.assert_allclose(td[0].numpy(), np.asarray(jd)[0],
+                               rtol=2.0 ** -23, atol=0)
+    d_empty = np.sqrt((((1e6 - src[0].astype(np.float64)) ** 2).sum(-1)))
+    np.testing.assert_allclose(td[0].numpy(), d_empty, rtol=1e-6)
+    assert float(td[2, 0]) == 1.0
+    if points:
+        assert (to[0] == 1e6).all()
+        np.testing.assert_array_equal(to[2, 0].numpy(), dst[2, 9])
+    else:
+        assert to.dtype == torch.int32 and (to[0] == 0).all()
+        assert int(to[2, 0]) == 2
+
+
+def test_vpu2_override_reaches_the_sentinel_form(monkeypatch):
+    src, dst, mask = _cloud_vpu2(7, m=384)
+    s, d, mk = _t(src, dst, mask)
+    monkeypatch.setenv("ICPFLOW_NN_VARIANT", "vpu2")
+    for fn, points in ((tknn.masked_nn, False), (tknn.masked_nn_points, True)):
+        got = fn(s, d, mk, tile=128)
+        want = tknn.masked_nn_plain(s, d, mk, form="sentinel", points=points)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # every plain tile split gives the same winners
+    for points in (False, True):
+        a = tknn.masked_nn_plain(s, d, mk, form="sentinel", points=points,
+                                 tile=5)
+        z = tknn.masked_nn_plain(s, d, mk, form="sentinel", points=points,
+                                 tile=384)
+        assert torch.equal(a[0], z[0]) and torch.equal(a[1], z[1])
