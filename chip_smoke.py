@@ -222,9 +222,12 @@ def phase_environment():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
+    driver = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.split()[0]
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} nvcc "
-          f"{nvcc.stdout.strip().splitlines()[-1]} | gpus "
+          f"{nvcc.stdout.strip().splitlines()[-1]} driver {driver} | gpus "
           f"{torch.cuda.device_count()} | {card}", flush=True)
     return card
 
@@ -284,6 +287,55 @@ def _time_ms(fn, iters=10):
     return a.elapsed_time(z) / iters
 
 
+def _explain(form, points, arrays, card, outs):
+    """Why a kernel and its plain version disagree: the worst rows against
+    a float64 reference on the host, and both sides run again on fresh
+    card copies of the same inputs. Printed to stderr before the failure."""
+    import torch
+    from icpflow_tpu_torch.ops import knn
+    from icpflow_tpu_torch.ops.cuda import nn_kernel
+    src, dst, mask = arrays
+    (ko, kd), (po, pd) = outs
+    gap = (kd - pd).abs().cpu().numpy()
+    lines = [f"[mismatch] {nn_kernel.kernel_name(form, points)} "
+             f"B,N,M={src.shape[0]},{src.shape[1]},{dst.shape[1]}: "
+             f"{int((gap > 1e-5).sum())} dist entries differ, rows "
+             f"{sorted(set(np.nonzero(gap > 1e-5)[0].tolist()))[:8]}; card "
+             "inputs equal the host's: " + str(all(
+                 np.array_equal(t.cpu().numpy(), a)
+                 for t, a in zip(card, arrays)))]
+    for flat in [f for f in np.argsort(gap, axis=None)[::-1][:4]
+                 if gap.flat[f] > 1e-5]:
+        b, i = np.unravel_index(flat, gap.shape)
+        d64 = np.linalg.norm(dst[b].astype(np.float64) - src[b, i], axis=-1)
+        ok = mask[b] if form != "sentinel" else np.ones_like(mask[b])
+        j = int(np.flatnonzero(ok)[d64[ok].argmin()]) if ok.any() else -1
+        lines.append(f"  row {b} src {i}: kernel {float(kd[b, i])!r} "
+                     f"{ko[b, i].tolist()} plain {float(pd[b, i])!r} "
+                     f"{po[b, i].tolist()} | float64 nearest valid j {j} "
+                     f"at {float(d64[j]) if j >= 0 else None!r}")
+    torch.cuda.synchronize()
+    fresh = [torch.as_tensor(a, device="cuda") for a in arrays]
+    for tag, tensors in (("same tensors", card), ("fresh copies", fresh)):
+        ko2, kd2 = nn_kernel.masked_nn_cuda(*tensors, form=form,
+                                            points=points)
+        po2, pd2 = knn.masked_nn_plain(*tensors, form=form, points=points)
+        torch.cuda.synchronize()
+        lines.append(
+            f"  again on {tag}: kernel == first kernel "
+            f"{bool(torch.equal(kd2, kd) and torch.equal(ko2, ko))}, plain "
+            f"== first plain {bool(torch.equal(pd2, pd) and torch.equal(po2, po))}"
+            f", kernel == plain {bool(torch.equal(kd2, pd2))}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,"
+         "ecc.errors.corrected.volatile.total,"
+         "ecc.errors.uncorrected.volatile.total", "--format=csv,noheader"],
+        capture_output=True, text=True)
+    lines.append(f"  card: sm clock, temperature, ECC corrected / uncorrected "
+                 f"errors: {smi.stdout.strip()}")
+    print("\n".join(lines), file=sys.stderr, flush=True)
+
+
 def _compare(form, points, src, dst, mask):
     """Kernel vs plain on the card. Returns the max abs dist/point error,
     the kernel's and the plain version's outputs, and the card tensors."""
@@ -294,18 +346,30 @@ def _compare(form, points, src, dst, mask):
     ko, kd = nn_kernel.masked_nn_cuda(s, d, mk, form=form, points=points)
     po, pd = knn.masked_nn_plain(s, d, mk, form=form, points=points)
     torch.cuda.synchronize()
+    what = (f"{nn_kernel.kernel_name(form, points)} "
+            f"B,N,M={src.shape[0]},{src.shape[1]},{dst.shape[1]}")
+
+    def agree(cond, msg):
+        if not cond:
+            try:        # the report must not replace the failure below
+                _explain(form, points, (src, dst, mask), (s, d, mk),
+                         ((ko, kd), (po, pd)))
+            except Exception as e:
+                print(f"[mismatch] report failed: {e!r}", file=sys.stderr)
+        check(cond, f"{what}: {msg}")
+
     # dist within 1e-5 m: kernel and plain run the same rounded fp32
     # sequence, so any difference is a fault, not noise (1e-5 m leaves
     # room only for the last bit of sqrt at ~100 m distances)
     err = float((kd - pd).abs().max()) if kd.numel() else 0.0
-    check(err <= 1e-5, f"{form}: dist differs by {err:.3g} m")
+    agree(err <= 1e-5, f"dist differs by {err:.3g} m")
     if points:
         perr = float((ko - po).abs().max()) if ko.numel() else 0.0
-        check(perr <= (0.0 if form == "sentinel" else 1e-5),
-              f"{form}: points differ by {perr:.3g} m")
+        agree(perr <= (0.0 if form == "sentinel" else 1e-5),
+              f"points differ by {perr:.3g} m")
         err = max(err, perr)
     elif form == "sentinel":
-        check(bool((ko == po).all()), f"{int((ko != po).sum())} idx differ")
+        agree(bool((ko == po).all()), f"{int((ko != po).sum())} idx differ")
     else:
         bad = (ko != po)
         if bool(bad.any()):
@@ -317,7 +381,7 @@ def _compare(form, points, src, dst, mask):
             d2k = ((gk.double() - s.double()) ** 2).sum(-1)
             d2p = ((gp.double() - s.double()) ** 2).sum(-1)
             gap = (d2k - d2p).abs()[bad]
-            check(bool((gap <= 1e-6 * d2p[bad].clamp(min=1e-30)).all()),
+            agree(bool((gap <= 1e-6 * d2p[bad].clamp(min=1e-30)).all()),
                   f"{int(bad.sum())} idx differ beyond FMA noise")
     return err, (ko, kd), (po, pd), (s, d, mk)
 

@@ -70,13 +70,19 @@ def build(force: bool = False) -> pathlib.Path:
     out = library_path()
     if out.exists() and not force:
         return out
+    nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    # nvcc names its intermediate files after its pid and the source's name;
+    # a private TMPDIR keeps a concurrent build (another checkout, another
+    # pid namespace over the same TMPDIR) from overwriting them
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              env=dict(os.environ, TMPDIR=work))
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
@@ -85,6 +91,7 @@ def build(force: bool = False) -> pathlib.Path:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
     return out
 
