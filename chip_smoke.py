@@ -9,8 +9,14 @@ Phases, one line each, any failure ends with a non-zero exit:
 2. build: compile the NN kernel library from ``icpflow_tpu_torch/csrc``;
 3. kernel vs plain: all six kernel instantiations against the plain
    PyTorch version at the main paths' shapes (the stream's exact odometry
-   sweep included) and at edge cases (an empty row, duplicates, ragged M,
-   N = 1, an equidistant tie), with both timed by CUDA events;
+   sweep included) and, 20 times over, at edge cases (an empty row,
+   duplicates, ragged M, N = 1, an equidistant tie; prefix masks of 0, 1,
+   chunk - 1, chunk, chunk + 1 and all dst, a hole of more than two chunks,
+   duplicates across a slice boundary, src masks with an all-invalid block,
+   one valid point, a prefix and nothing valid), every launch plan (src
+   points a thread, dst slices) against the wrapper's own, bit for bit.
+   Kernel, plain version and the library call (``torch.cdist`` + ``min``,
+   timed only) by CUDA events, beside the bound on the valid pairs;
 4. frame-pair path: ``run_frame_pair`` at the bench configuration on the
    synthetic held-out scene (seed 7, gaps 1 and 4, ~74k points per frame),
    twice per pair; the flow is checked against the GT flow and against the
@@ -23,17 +29,30 @@ Phases, one line each, any failure ends with a non-zero exit:
    default policy, after a two-frame warm-up; each frame is checked
    against the GT pose and flow and against ``JAX_STREAM_REFERENCE``.
 
+6. launch table: both paths once more with every NN launch's inputs
+   kept, then each launched again alone: launches, valid pairs, kernel
+   milliseconds and bound per kernel and (N, M), a pair and a stream frame,
+   ranked by the time lost against the bound; the largest launch of each is
+   held against the plain version and timed like the shapes of phase 3.
+
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after; they show it went through the kernels and never through
 the plain NN version. The last lines are the card (nvidia-smi), the kernel
 table as JSON, and ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --profile`` instead profiles one warm stream frame
+under each policy with ``torch.profiler`` (device busy and idle share, the
+exact sweep's share) and prints no result line.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -127,6 +146,7 @@ KERNELS = {
                           [(256, 1024, 4096), (2048, 512, 512)]),  # vpu2
 }
 SOURCE = "icpflow_tpu_torch/csrc/nn_kernel.cu"
+EXACT_SHAPE = (1, 16384, 262144)     # the odometry's buffers
 
 
 class SmokeFailure(RuntimeError):
@@ -143,14 +163,21 @@ def bench_config():
     return DEMO.replace(**BENCH_OVERRIDES)
 
 
-def scene_pairs(cfg, seed=SEED, gaps=GAPS):
-    """(gap, point_src, point_dst, gt_flow, dynamic, translation_frame) of
-    the held-out synthetic scene (numpy, made from ``seed``)."""
-    from icpflow_tpu_torch.data.synthetic import ego_aligned_pair, make_sample
+@functools.lru_cache(maxsize=2)
+def _sample(seed):
+    """The held-out synthetic scene of ``seed`` as a dict of numpy arrays."""
+    from icpflow_tpu_torch.data.synthetic import make_sample
     buf = io.BytesIO()
     make_sample(buf, num_frames=NUM_FRAMES, seed=seed)
     buf.seek(0)
-    sample = dict(np.load(buf))
+    return dict(np.load(buf))
+
+
+def scene_pairs(cfg, seed=SEED, gaps=GAPS):
+    """(gap, point_src, point_dst, gt_flow, dynamic, translation_frame) of
+    the held-out synthetic scene (numpy, made from ``seed``)."""
+    from icpflow_tpu_torch.data.synthetic import ego_aligned_pair
+    sample = _sample(seed)
     out = []
     for j in gaps:
         src, dst, gt, dyn = ego_aligned_pair(sample, j)
@@ -165,11 +192,7 @@ def stream_frames(seed=SEED):
     frame k >= 1 the GT flow of its points back to frame k-1 in world
     coordinates (the instance motions of ``bbox_tsfm``; zero for static
     points) with the mover mask. Entry 0 of the last two is None."""
-    from icpflow_tpu_torch.data.synthetic import make_sample
-    buf = io.BytesIO()
-    make_sample(buf, num_frames=NUM_FRAMES, seed=seed)
-    buf.seek(0)
-    sample = dict(np.load(buf))
+    sample = _sample(seed)
     raw = sample["raw_points"]
     ti = sample["time_indice"]
     inst = sample["inst_labels"]
@@ -238,6 +261,23 @@ def phase_build():
     nn_kernel.load()
     print(f"[build] {path.name} from {SOURCE} in "
           f"{nn_kernel.build_seconds:.2f} s", flush=True)
+    # ptxas -v: registers and spills of every instantiation
+    # masked_nn_kernel<form, points output, src points a thread, split>
+    entries = re.findall(
+        r"Compiling entry function '(\S+)' for 'sm_90a'.*?(\d+) bytes stack "
+        r"frame, (\d+) bytes spill stores, (\d+) bytes spill loads.*?Used "
+        r"(\d+) registers", nn_kernel.build_log, flags=re.S)
+    check(entries, "nvcc printed no ptxas -v lines")
+    by_regs = {}
+    for sym, stack, st, ld, regs in entries:
+        t = re.search(r"masked_nn_kernelILi(\d)ELb([01])ELi(\d)ELb([01])E", sym)
+        tag = ("nn_finish_kernel" if t is None else
+               "<{},{},{},{}>".format(*t.groups()))
+        by_regs.setdefault((int(regs), int(stack), int(st), int(ld)),
+                           []).append(tag)
+    for (regs, stack, st, ld), tags in sorted(by_regs.items()):
+        print(f"[build] ptxas: {regs} registers, stack {stack} B, spill "
+              f"stores {st} B, loads {ld} B: {' '.join(tags)}", flush=True)
 
 
 def _inputs(b, n, m, seed, *, dup=False, empty_row=False):
@@ -287,7 +327,113 @@ def _time_ms(fn, iters=10):
     return a.elapsed_time(z) / iters
 
 
-def _explain(form, points, arrays, card, outs):
+def _device_ms(fn, iters=10):
+    """Milliseconds of device time a call of ``fn``: ``iters`` calls captured
+    into one CUDA graph and replayed, so that no host work (the wrapper's
+    checks and allocations, the launch itself) sits between the kernels."""
+    import torch
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):      # warm up off the default stream
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    z = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    z.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(z) / iters
+
+
+def _valid_pairs(form, src, mask, src_mask=None):
+    """(src, dst) pairs a sweep over these inputs needs: valid src times
+    valid dst, summed over the batch rows. The sentinel forms keep every
+    dst a candidate. One device read."""
+    import torch
+    b, n, _ = src.shape
+    sv = (torch.full((b,), float(n), dtype=torch.float64, device=src.device)
+          if src_mask is None else src_mask.sum(1).double())
+    dv = (torch.full((b,), float(mask.shape[1]), dtype=torch.float64,
+                     device=src.device)
+          if form == "sentinel" else mask.sum(1).double())
+    return float((sv * dv).sum())
+
+
+def _bound(form, points, src, mask, src_mask=None):
+    """(valid pairs, bound ms, what bounds it) of one launch: the larger of
+    its FP32 operations on the valid pairs at the card's peak FP32 rate and
+    its bytes at the card's memory rate."""
+    from icpflow_tpu_torch.ops.cuda import nn_kernel
+    pairs = _valid_pairs(form, src, mask, src_mask)
+    ops = nn_kernel.bound_ms(pairs, form, points)
+    io = nn_kernel.io_ms(src.shape[0], src.shape[1], mask.shape[1], points,
+                         src_mask is not None)
+    return pairs, max(ops, io), "operations" if ops >= io else "bytes"
+
+
+def _library_nn(form, src, dst, mask, budget=1 << 30):
+    """The same function by PyTorch's library calls: ``torch.cdist``,
+    invalid columns filled with a large value (the sentinel forms move the
+    invalid dst instead), ``min`` over dst; in chunks over src that keep
+    the distance matrix under ``budget`` elements (4 GB). Only timed here
+    as a yardstick; the port never calls it."""
+    import torch
+    b, n, _ = src.shape
+    m = dst.shape[1]
+    if form == "sentinel":
+        dst = torch.where(mask[:, :, None], dst, torch.full_like(dst, 1e6))
+    step = max(1, budget // (b * m))
+    out = []
+    for i0 in range(0, n, step):
+        d = torch.cdist(src[:, i0:i0 + step], dst)
+        if form != "sentinel":
+            d.masked_fill_(~mask[:, None, :], 1e15)
+        out.append(d.min(dim=2))
+    return out
+
+
+def _time_case(name, form, points, s, d, mk, fill, src_mask=None):
+    """Kernel, plain and library milliseconds of one input beside its
+    bound; prints the ``[kernel]`` line and returns the JSON entry. ``ms``
+    is a call of the wrapper in a loop of eager calls (its scratch fill and
+    finish pass included; a launch under ~0.05 ms reads the wrapper's host
+    time instead), ``device_ms`` the same calls replayed from a CUDA graph."""
+    from icpflow_tpu_torch.ops import knn
+    from icpflow_tpu_torch.ops.cuda import nn_kernel
+    kw = {} if src_mask is None else dict(src_mask=src_mask)
+
+    def kernel():
+        return nn_kernel.masked_nn_cuda(s, d, mk, form=form, points=points,
+                                        **kw)
+
+    ms = _time_ms(kernel)
+    device_ms = _device_ms(kernel)
+    plain_ms = _time_ms(lambda: knn.masked_nn_plain(
+        s, d, mk, form=form, points=points, **kw), iters=3)
+    library_ms = _time_ms(lambda: _library_nn(form, s, d, mk), iters=3)
+    pairs, bound, by = _bound(form, points, s, mk, src_mask)
+    shape = [s.shape[0], s.shape[1], d.shape[1]]
+    entry = dict(shape=shape, fill=fill, valid_pairs=pairs, ms=ms,
+                 device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound,
+                 bound_by=by, share_of_bound=bound / ms,
+                 share_of_bound_device=bound / device_ms,
+                 library_ms=library_ms)
+    print(f"[kernel] {name} B,N,M={tuple(shape)} {fill}: kernel {ms:.4f} ms "
+          f"(device {device_ms:.4f}) plain {plain_ms:.4f} ms library "
+          f"{library_ms:.4f} ms | valid pairs {pairs:.4g} of "
+          f"{shape[0] * shape[1] * shape[2]:.4g} bound {bound:.4f} ms ({by}) "
+          f"share {bound / ms:.3f} (device {bound / device_ms:.3f})",
+          flush=True)
+    return entry
+
+
+def _explain(form, points, arrays, card, outs, src_mask=None, plan=None):
     """Why a kernel and its plain version disagree: the worst rows against
     a float64 reference on the host, and both sides run again on fresh
     card copies of the same inputs. Printed to stderr before the failure."""
@@ -298,7 +444,8 @@ def _explain(form, points, arrays, card, outs):
     (ko, kd), (po, pd) = outs
     gap = (kd - pd).abs().cpu().numpy()
     lines = [f"[mismatch] {nn_kernel.kernel_name(form, points)} "
-             f"B,N,M={src.shape[0]},{src.shape[1]},{dst.shape[1]}: "
+             f"B,N,M={src.shape[0]},{src.shape[1]},{dst.shape[1]} plan {plan} "
+             f"src_mask {src_mask is not None}: "
              f"{int((gap > 1e-5).sum())} dist entries differ, rows "
              f"{sorted(set(np.nonzero(gap > 1e-5)[0].tolist()))[:8]}; card "
              "inputs equal the host's: " + str(all(
@@ -317,9 +464,10 @@ def _explain(form, points, arrays, card, outs):
     torch.cuda.synchronize()
     fresh = [torch.as_tensor(a, device="cuda") for a in arrays]
     for tag, tensors in (("same tensors", card), ("fresh copies", fresh)):
-        ko2, kd2 = nn_kernel.masked_nn_cuda(*tensors, form=form,
-                                            points=points)
-        po2, pd2 = knn.masked_nn_plain(*tensors, form=form, points=points)
+        ko2, kd2 = nn_kernel.masked_nn_cuda(
+            *tensors, form=form, points=points, src_mask=src_mask, plan=plan)
+        po2, pd2 = knn.masked_nn_plain(*tensors, form=form, points=points,
+                                       src_mask=src_mask)
         torch.cuda.synchronize()
         lines.append(
             f"  again on {tag}: kernel == first kernel "
@@ -336,24 +484,30 @@ def _explain(form, points, arrays, card, outs):
     print("\n".join(lines), file=sys.stderr, flush=True)
 
 
-def _compare(form, points, src, dst, mask):
+def _compare(form, points, src, dst, mask, src_mask=None, plan=None):
     """Kernel vs plain on the card. Returns the max abs dist/point error,
-    the kernel's and the plain version's outputs, and the card tensors."""
+    the kernel's and the plain version's outputs, and the card tensors.
+    ``src_mask`` (numpy or None) goes to both; ``plan`` overrides the
+    kernel's (src points per thread, dst slices)."""
     import torch
     from icpflow_tpu_torch.ops import knn
     from icpflow_tpu_torch.ops.cuda import nn_kernel
     s, d, mk = (torch.as_tensor(a, device="cuda") for a in (src, dst, mask))
-    ko, kd = nn_kernel.masked_nn_cuda(s, d, mk, form=form, points=points)
-    po, pd = knn.masked_nn_plain(s, d, mk, form=form, points=points)
+    sm = None if src_mask is None else torch.as_tensor(src_mask, device="cuda")
+    ko, kd = nn_kernel.masked_nn_cuda(s, d, mk, form=form, points=points,
+                                      src_mask=sm, plan=plan)
+    po, pd = knn.masked_nn_plain(s, d, mk, form=form, points=points,
+                                 src_mask=sm)
     torch.cuda.synchronize()
     what = (f"{nn_kernel.kernel_name(form, points)} "
-            f"B,N,M={src.shape[0]},{src.shape[1]},{dst.shape[1]}")
+            f"B,N,M={src.shape[0]},{src.shape[1]},{dst.shape[1]} plan {plan}"
+            f"{'' if sm is None else ' with src_mask'}")
 
     def agree(cond, msg):
         if not cond:
             try:        # the report must not replace the failure below
                 _explain(form, points, (src, dst, mask), (s, d, mk),
-                         ((ko, kd), (po, pd)))
+                         ((ko, kd), (po, pd)), sm, plan)
             except Exception as e:
                 print(f"[mismatch] report failed: {e!r}", file=sys.stderr)
         check(cond, f"{what}: {msg}")
@@ -422,29 +576,103 @@ def _check_edges(name, form, points, k):
     return worst
 
 
+def _plans(form, points):
+    """(src points per thread, dst slices) to hold against each other:
+    None is the wrapper's own choice; only the index output of the
+    elementwise and sentinel forms can split dst."""
+    plans = [None, (1, 1), (2, 1), (4, 1)]
+    if not points and form != "expanded":
+        plans += [(1, 2), (2, 3), (4, 5)]
+    return plans
+
+
+def _check_fills(name, form, points, k):
+    """Padding, slices and src masks: every plan against the plain version
+    and, bit for bit, against the one-pass one-point plan. Returns the
+    worst error."""
+    import torch
+    from icpflow_tpu_torch.ops.cuda.nn_kernel import CHUNK
+    rng = np.random.default_rng(500 + k)
+    cases = []                       # (what, src, dst, mask, src_mask)
+    # N = 300 is no multiple of a block's 128, 256 or 512 points; M = 2500
+    # is 3 chunks, the last ragged, so 2 slices hold 2 and 1 of them
+    src, dst, _ = _inputs(2, 300, 2500, 500 + k)
+    for count in (0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 2500):
+        cases.append((f"prefix of {count} dst", src, dst,
+                      np.broadcast_to(np.arange(2500) < count, (2, 2500)),
+                      None))
+    src, dst, mask = _inputs(2, 300, 5000, 510 + k)
+    mask[:, 700:700 + 2 * CHUNK + 400] = False
+    cases.append(("a hole of more than two chunks", src, dst, mask, None))
+    src, dst, mask = _inputs(2, 300, 3 * CHUNK, 520 + k)
+    dst[:, CHUNK:2 * CHUNK] = dst[:, :CHUNK]     # chunk 1 repeats chunk 0:
+    mask[:] = True                               # other slice, lower j wins
+    cases.append(("duplicates across a slice boundary", src, dst, mask, None))
+    src, dst, mask = _inputs(2, 1300, 2500, 530 + k)
+    some = rng.random((2, 1300)) < 0.7
+    some[:, 128:256] = False                     # an all-invalid block
+    some[:, 256:384] = False
+    some[:, 300] = True                          # a block with one valid point
+    cases.append(("src_mask with holes", src, dst, mask, some))
+    cases.append(("src_mask prefix", src, dst, mask,
+                  np.broadcast_to(np.arange(1300) < 77, (2, 1300))))
+    cases.append(("src_mask all False", src, dst, mask,
+                  np.zeros((2, 1300), bool)))
+    # one row against a long, mostly empty buffer: the wrapper's own plan
+    # splits dst here, as for the odometry
+    src, dst, _ = _inputs(1, 300, 9000, 540 + k)
+    cases.append(("prefixes of a long dst", src, dst,
+                  np.arange(9000)[None] < 2900, np.arange(300)[None] < 211))
+    worst = 0.0
+    for what, src, dst, mask, sm in cases:
+        first = None
+        for plan in _plans(form, points):
+            err, (ko, kd), _, _ = _compare(form, points, src, dst, mask, sm,
+                                           plan)
+            worst = max(worst, err)
+            if first is None:
+                first = (ko, kd)
+            check(torch.equal(ko, first[0]) and torch.equal(kd, first[1]),
+                  f"{name}: {what}: plan {plan} and the wrapper's own plan "
+                  "give different bits")
+        ko, kd = first
+        if sm is not None:           # masked-out src: idx 0 / zeros, 1e15
+            out = torch.as_tensor(~sm, device="cuda")
+            check(bool((kd[out] == 1e15).all()) and bool((ko[out] == 0).all()),
+                  f"{name}: {what}: masked-out src rows")
+        if what.startswith("duplicates") and not points:
+            check(bool(((ko < CHUNK) | (ko >= 2 * CHUNK)).all()),
+                  f"{name}: {what}: a higher duplicate won")
+    return worst
+
+
+EDGE_REPEATS = 20      # a fault that shows once in thousands of checks
+
+
 def phase_kernels():
-    from icpflow_tpu_torch.ops import knn
-    from icpflow_tpu_torch.ops.cuda import nn_kernel
+    import torch
     rows = {}
     for k, (name, (form, points, _, shapes)) in enumerate(KERNELS.items()):
-        worst = _check_edges(name, form, points, k)
+        worst = 0.0
+        for rep in range(EDGE_REPEATS):
+            worst = max(worst, _check_edges(name, form, points, k + 1000 * rep),
+                        _check_fills(name, form, points, k + 1000 * rep))
         times = []
         for shape in shapes:
             src, dst, mask = _inputs(*shape, 200 + k)
             err, _, _, (s, d, mk) = _compare(form, points, src, dst, mask)
             worst = max(worst, err)
-            ms = _time_ms(lambda: nn_kernel.masked_nn_cuda(
-                s, d, mk, form=form, points=points))
-            plain_ms = _time_ms(lambda: knn.masked_nn_plain(
-                s, d, mk, form=form, points=points), iters=3)
-            times.append(dict(shape=list(shape), ms=ms, plain_ms=plain_ms))
-            print(f"[kernel] {name} B,N,M={shape}: kernel {ms:.4f} ms plain "
-                  f"{plain_ms:.4f} ms", flush=True)
-        rows[name] = dict(max_abs_err=worst, ms=times[0]["ms"],
-                          plain_ms=times[0]["plain_ms"],
-                          shape=times[0]["shape"], times=times)
+            times.append(_time_case(name, form, points, s, d, mk,
+                                    "random 0.9 mask"))
+            if shape == EXACT_SHAPE:     # every slot of both buffers valid
+                full = torch.ones_like(mk)
+                times.append(_time_case(
+                    name, form, points, s, d, full, "all valid",
+                    torch.ones(s.shape[:2], dtype=torch.bool, device="cuda")))
+        rows[name] = dict(max_abs_err=worst, times=times)
         print(f"[kernel] {name}: max_abs_err {worst:.3g} over the shapes, "
-              "the edge cases and the tie", flush=True)
+              f"the edge cases and the tie, each {EDGE_REPEATS} times",
+              flush=True)
     return rows
 
 
@@ -453,6 +681,7 @@ def _reset_counts():
     from icpflow_tpu_torch.ops.cuda import nn_kernel
     nn_kernel.launches = 0
     nn_kernel.variant_launches.clear()
+    nn_kernel.shape_launches.clear()
     knn.plain_calls = 0
 
 
@@ -536,6 +765,20 @@ def _run_stream(cfg, scans):
     return outs, times
 
 
+@contextlib.contextmanager
+def _nn_variant(variant):
+    """ICPFLOW_NN_VARIANT set to ``variant`` inside the block."""
+    old = os.environ.get("ICPFLOW_NN_VARIANT")
+    os.environ["ICPFLOW_NN_VARIANT"] = variant
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("ICPFLOW_NN_VARIANT", None)
+        else:
+            os.environ["ICPFLOW_NN_VARIANT"] = old
+
+
 def phase_stream(card):
     """The stream path under vpu2 and under the default policy."""
     cfg = bench_config()
@@ -543,17 +786,10 @@ def phase_stream(card):
     _run_stream(cfg, scans[:2])          # warm-up: solver handles, caches
     counts = {}
     for variant in ("vpu2", "auto"):
-        old = os.environ.get("ICPFLOW_NN_VARIANT")
-        os.environ["ICPFLOW_NN_VARIANT"] = variant
-        try:
+        with _nn_variant(variant):
             _reset_counts()
             outs, times = _run_stream(cfg, scans)
             launches, per_kernel, plain = _read_counts()
-        finally:
-            if old is None:
-                os.environ.pop("ICPFLOW_NN_VARIANT", None)
-            else:
-                os.environ["ICPFLOW_NN_VARIANT"] = old
         counts[variant] = per_kernel
         check(outs[0] is None, "the first frame returned a result")
         for k in range(1, len(scans)):
@@ -599,6 +835,166 @@ def phase_stream(card):
     return counts["vpu2"]
 
 
+def _record_launches(run):
+    """Run ``run()`` with the inputs of every NN launch cloned on the card.
+    Returns [(kernel name, src, dst, dst_mask, src_mask | None), ...]."""
+    from icpflow_tpu_torch.ops.cuda import nn_kernel
+    rec = []
+
+    def keep(name, src, dst, dst_mask, src_mask):
+        rec.append((name, src.clone(), dst.clone(), dst_mask.clone(),
+                    None if src_mask is None else src_mask.clone()))
+
+    nn_kernel.on_launch = keep
+    try:
+        run()
+    finally:
+        nn_kernel.on_launch = None
+    return rec
+
+
+def _replay(label, unit, units, rec, reps):
+    """Launch every recorded input again, alone and timed by CUDA events,
+    beside its valid pairs and its bound. Prints, per kernel and (N, M), the
+    launches and milliseconds a ``unit`` (the record holds ``units`` of
+    them) and returns those rows per kernel name, ranked by the time lost
+    against the bound. ``reps`` keeps the largest launch of each (kernel, N,
+    M) for the kernel-vs-plain-vs-library timing."""
+    from icpflow_tpu_torch.ops.cuda import nn_kernel
+    groups = {}
+    for name, s, d, mk, sm in rec:
+        form, points = KERNELS[name][:2]
+        kw = {} if sm is None else dict(src_mask=sm)
+        ms = _time_ms(lambda: nn_kernel.masked_nn_cuda(
+            s, d, mk, form=form, points=points, **kw), iters=3)
+        pairs, bound, _ = _bound(form, points, s, mk, sm)
+        b, n, m = s.shape[0], s.shape[1], d.shape[1]
+        g = groups.setdefault((name, n, m), dict(
+            n=n, m=m, b_min=b, b_max=b, launches=0, valid_pairs=0.0,
+            swept_pairs=0.0, kernel_ms=0.0, bound_ms=0.0, shapes={}))
+        g["b_min"], g["b_max"] = min(g["b_min"], b), max(g["b_max"], b)
+        g["launches"] += 1
+        g["valid_pairs"] += pairs
+        g["swept_pairs"] += float(b) * n * m
+        g["kernel_ms"] += ms
+        g["bound_ms"] += bound
+        g["shapes"][b] = g["shapes"].get(b, 0) + 1
+        if (name, n, m) not in reps or reps[name, n, m][0] <= b:
+            reps[name, n, m] = (b, label, (s, d, mk, sm))
+    out = {}
+    ranked = sorted(groups.items(),
+                    key=lambda kv: kv[1]["bound_ms"] - kv[1]["kernel_ms"])
+    for rank, ((name, n, m), g) in enumerate(ranked, 1):
+        for key in ("launches", "valid_pairs", "swept_pairs", "kernel_ms",
+                    "bound_ms"):
+            g[key] /= units
+        g["lost_ms"] = g["kernel_ms"] - g["bound_ms"]
+        g["shapes"] = sorted([b, c] for b, c in g["shapes"].items())
+        out.setdefault(name, []).append(g)
+        print(f"[launches {label}] {rank}. {name} N,M={n},{m} B "
+              f"{g['b_min']}-{g['b_max']}: {g['launches']:.2f} launches a "
+              f"{unit} | valid pairs {g['valid_pairs']:.4g} of "
+              f"{g['swept_pairs']:.4g} swept | kernel {g['kernel_ms']:.4f} ms "
+              f"bound {g['bound_ms']:.4f} ms lost {g['lost_ms']:.4f} ms a "
+              f"{unit}", flush=True)
+    return out
+
+
+def phase_launch_table(rows):
+    """Launches by shape and fill on each path, in a pass of its own that
+    no path's time includes: every launch's inputs are kept, then launched
+    again alone for the kernel's time beside its bound. The largest launch
+    of each (kernel, N, M) is then held against the plain version and timed
+    against it and the library call. Adds ``paths`` and the main-path
+    entries of ``times`` to ``rows``."""
+    import torch
+    from icpflow_tpu_torch import SceneFlowEngine, run_frame_pair
+    cfg = bench_config()
+    engine = SceneFlowEngine(cfg, device="cuda")
+    pairs = scene_pairs(cfg)
+    scans = stream_frames()[0]
+    reps = {}
+
+    def run_pairs():
+        for _, src, dst, _, _, tf in pairs:
+            run_frame_pair(engine, src, dst, translation_frame=tf)
+
+    def run_stream(variant):
+        with _nn_variant(variant):
+            _run_stream(cfg, scans)
+
+    paths = [("pair", "pair", len(pairs), run_pairs),
+             ("stream vpu2", "frame", len(scans) - 1,
+              lambda: run_stream("vpu2")),
+             ("stream default", "frame", len(scans) - 1,
+              lambda: run_stream("auto"))]
+    for label, unit, units, run in paths:
+        rec = _record_launches(run)
+        for name, groups in _replay(label, unit, units, rec, reps).items():
+            rows[name].setdefault("paths", {})[label] = groups
+        del rec
+        torch.cuda.empty_cache()
+    main_times = {}
+    for (name, n, m), (b, label, (s, d, mk, sm)) in reps.items():
+        form, points = KERNELS[name][:2]
+        err = _compare(form, points, s.cpu().numpy(), d.cpu().numpy(),
+                       mk.cpu().numpy())[0]
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+        main_times.setdefault(name, []).append(_time_case(
+            name, form, points, s, d, mk, f"main path ({label})", sm))
+    for name, entries in main_times.items():
+        entries.sort(key=lambda e: -e["ms"])
+        rows[name]["times"] = entries + rows[name]["times"]
+
+
+def phase_profile(card, frame=3):
+    """``torch.profiler`` (CPU + CUDA) around one warm stream frame under
+    each policy: wall, device busy and idle share, kernels, and the share of
+    the odometry's exact NN sweep (the split launches of the kernel, their
+    scratch fill not counted)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from icpflow_tpu_torch import StreamingEngine
+    cfg = bench_config()
+    scans = stream_frames()[0]
+    _run_stream(cfg, scans[:2])
+    for variant in ("vpu2", "auto"):
+        with _nn_variant(variant):
+            eng = StreamingEngine(cfg, estimate_ego=True, device="cuda")
+            for scan in scans[:frame]:
+                eng.process(scan)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                eng.process(scans[frame])
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        check(kern, "the profiler saw no device activity")
+        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+        by_name = {}
+        for e in kern:
+            c, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (c + 1, t + e.time_range.elapsed_us() / 1e3)
+        nn = {k: v for k, v in by_name.items() if "masked_nn_kernel" in k}
+        split = [v for k, v in nn.items() if ", true>" in k.replace("  ", " ")]
+        finish = by_name.get(next((k for k in by_name
+                                   if "nn_finish_kernel" in k), ""), (0, 0.0))
+        print(f"[profile {variant}] frame {frame}: wall {wall:.1f} ms | device "
+              f"busy {busy:.1f} ms idle share {1 - busy / wall:.3f} | "
+              f"{len(kern)} device activities | NN sweeps "
+              f"{sum(c for c, _ in nn.values())} launches "
+              f"{sum(t for _, t in nn.values()):.3f} ms, of them the split "
+              f"exact sweep {sum(c for c, _ in split)} launches "
+              f"{sum(t for _, t in split):.3f} ms, plus its finish pass "
+              f"{finish[0]} launches {finish[1]:.3f} ms | {card}", flush=True)
+        for name, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
+            print(f"[profile {variant}]   {t:9.3f} ms {c:6d} x {name[:110]}",
+                  flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -608,9 +1004,13 @@ def main():
     t0 = time.time()
     card = phase_environment()
     phase_build()
+    if "--profile" in sys.argv[1:]:
+        phase_profile(card)
+        return 0
     rows = phase_kernels()
     per_kernel = phase_main_path(card)
     stream_kernel = phase_stream(card)
+    phase_launch_table(rows)
     table = []
     for name, (form, _, rep, _) in KERNELS.items():
         # launches: the frame-pair path's count; the sentinel kernels run
@@ -618,8 +1018,11 @@ def main():
         path = stream_kernel if form == "sentinel" else per_kernel
         check(path.get(name, 0) > 0,
               f"kernel {name} was not launched by its main path")
+        # the row's own numbers are those of its first entry in ``times``:
+        # the largest launch the main paths made of it
         table.append(dict(name=name, route="cuda", source=SOURCE,
-                          replaces=rep, launches=path[name], **rows[name]))
+                          replaces=rep, launches=path[name],
+                          **rows[name]["times"][0], **rows[name]))
     print(f"[done] {time.time() - t0:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": table}))

@@ -13,9 +13,8 @@
 //   elementwise: d2 = (y0-x0)^2 + (y1-x1)^2 + (y2-x2)^2
 // The expanded and elementwise forms never choose an invalid dst: where no
 // dst is valid, idx is 0, dist is sqrt(1e30) = 1e15 and the returned point is
-// (0,0,0), as in the reference. The lowest index wins ties: each thread
-// sweeps dst in index order and takes a candidate only when it is strictly
-// smaller.
+// (0,0,0), as in the reference. The lowest index wins ties: dst is swept in
+// index order and a candidate is taken only when it is strictly smaller.
 //
 // The sentinel form (the TPU's "vpu2") reads no mask in the sweep: invalid
 // dst points are moved to (1e6, 1e6, 1e6) while dst is staged into shared
@@ -28,35 +27,87 @@
 // of a carry height that does not divide the padded length (dst rows
 // skipped) has no counterpart: every dst point is swept.
 //
-// Design. One thread owns one src point; a block of kThreads threads covers
-// kThreads consecutive src points of one batch row, grid (ceil(N/kThreads),
-// B). dst (with |y|^2 and the mask, or with the sentinel folded in) streams
-// through shared memory in chunks of kChunk points; every thread reads the
-// same shared entry at the same time (a broadcast, no bank conflicts). The
-// points output reads dst[b, best] once at the end instead of carrying the
-// TPU's one-hot select.
+// An optional src mask marks src points whose result nobody reads: they get
+// idx 0, dist 1e15 and the point (0,0,0) in every form, and a block (or, with
+// dst split, every block) that holds only such points leaves at once.
+//
+// Bound. Each candidate is counted as 11 FP32 lane-operations (8 for the
+// distance in either form, a compare and 2 selects; 12 in the sentinel
+// form's points output, for its tie compare) and costs no device-memory
+// traffic: dst is
+// read once per block into shared memory, so bytes are O(B * (N + M * N /
+// points per block)), far below the O(B * N * M) operations. The kernel is
+// bound by the FP32 rate of the CUDA cores (33.5e12 lane-operations a second:
+// nothing here contracts into an FMA), counted on the pairs of a valid src
+// and a valid dst: the masks the callers pass are prefixes of fixed-capacity
+// buffers, the odometry's map at 5-20% of 262,144 points and its source at
+// ~22% of 16,384, so a sweep over every slot does ~26 times the work its
+// inputs need. Tensor cores offer nothing here: they have no full-fp32 mode
+// (TF32 keeps about 3 digits, too few for metre-scale coordinates under a
+// 0.1 m gate) and K=3 would pad to a depth of 8.
+//
+// Design, and what each part does about that bound.
+// * Skip padding in dst. dst streams through shared memory in chunks of
+//   kChunk points. While a chunk is staged the mask is folded into the
+//   coordinates: an invalid dst becomes +inf (elementwise) or gets |y|^2 =
+//   +inf (expanded), so its d2 is +inf and `d2 < best` is false; the inner
+//   loop reads one float4 a candidate and no mask byte. A thread stages
+//   kStage points of a chunk: first their mask bytes, then, after a barrier
+//   that also takes the block-wide "any valid" (__syncthreads_or), their
+//   coordinates, as independent loads that cost one latency. A chunk with
+//   no valid dst is skipped after the mask; a split sweep never loads its
+//   coordinates (a one-pass sweep has started the loads beside the mask's,
+//   to pay one latency a chunk instead of two). The sentinel forms skip
+//   nothing: the sentinel stays a candidate.
+// * Skip padding in src. A block whose src points are all masked out or out
+//   of range leaves before the sweep.
+// * Split dst across blocks when B * N alone gives too few of them (the
+//   odometry's sweep has B = 1). The grid's z axis holds S slices; slice z
+//   takes chunks z, z + S, z + 2S, ... so that a valid prefix spreads evenly
+//   over the slices. Each block merges its (d2, j) into a (B, N) 64-bit
+//   scratch buffer with atomicMin on (bits of d2) << 32 | j: d2 >= +0 in the
+//   elementwise and sentinel forms, so the bit pattern orders like the
+//   value, and the minimum of (d2, j) is the lowest index on a tie whatever
+//   order the blocks arrive in. The result is deterministic and equal to the
+//   one-pass sweep bit for bit. A small finish kernel turns the keys into
+//   idx and dist. The wrapper allocates and fills the scratch; only the
+//   index output of the elementwise and sentinel forms can be split (the
+//   expanded form's d2 can be slightly negative).
+// * Several src points per thread (kR = 1, 2 or 4; a block covers kThreads *
+//   kR consecutive src points of one batch row): one shared-memory read
+//   feeds kR candidates. Every thread reads the same shared entry at the
+//   same time (a broadcast, no bank conflicts). The wrapper takes kR > 1
+//   only for grids that still fill the card; a small grid wants the warps.
+// * No chain through `best`. Taking candidates one by one makes every
+//   compare wait for the select before it, and on a small grid (one block a
+//   multiprocessor) that chain is the kernel's time. Candidates go in
+//   aligned groups of kGroup: their d2 are independent, a tree of fminf
+//   gives the group's minimum, and only a group whose minimum beats `best`
+//   looks for its index, the first occurrence of the minimum. That is what
+//   the one-by-one sweep leaves behind, under strict `<` and under the
+//   points form's (j mod 8) rule alike. fminf passes over a NaN, which
+//   `<` never takes either; nothing carries a NaN forward.
+// * The points output reads dst[b, best] once at the end instead of carrying
+//   the TPU's one-hot select.
 //
 // Arithmetic. Every product and sum is rounded on its own (no FMA
 // contraction), in the order the plain PyTorch version in ops/knn.py uses,
 // so the two agree bit for bit and ties resolve the same way.
-//
-// Bound. Each candidate costs about 11 FP32 operations (8 for the distance
-// in either form, a compare and 2 selects; the sentinel form drops the mask
-// test and its points output adds a tie compare) and no device-memory
-// traffic: dst is read once per block, so bytes are O(B * (N + M * N /
-// kThreads)), small beside the O(B * N * M) operations. The kernel is bound
-// by FP32 issue on the CUDA cores. Tensor cores offer nothing here: they
-// have no full-fp32 mode (TF32 keeps about 3 digits, too few for metre-scale
-// coordinates under a 0.1 m gate) and K=3 would pad to a depth of 8.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kChunk = 1024;         // a multiple of 8: t & 7 == j & 7
-constexpr float kBig = 1e30f;
+constexpr int kChunk = 512;          // a multiple of 8: t & 7 == j & 7
+constexpr int kStage = kChunk / kThreads;   // dst points a thread stages
+constexpr int kGroup = 8;            // candidates per fminf tree
+static_assert((kGroup & (kGroup - 1)) == 0 && kGroup <= 8 &&
+                  kChunk % kGroup == 0,
+              "an aligned group lies inside one run of j mod 8");
+constexpr float kBig = 1e30f;        // "none found": no candidate reaches it
 constexpr float kSentinelCoord = 1e6f;
 
 enum Form : int { kExpanded = 0, kElementwise = 1, kSentinel = 2 };
@@ -70,140 +121,327 @@ __device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
                    __fmul_rn(a2, b2));
 }
 
+// d2 of one candidate y = (y0, y1, y2, |y|^2) in the form's rounding order.
+template <int kForm>
+__device__ __forceinline__ float dist2(float x0, float x1, float x2, float xsq,
+                                       const float4& y) {
+  if (kForm == kExpanded) {
+    const float cross = dot3(x0, x1, x2, y.x, y.y, y.z);
+    return __fadd_rn(__fsub_rn(xsq, __fmul_rn(2.0f, cross)), y.w);
+  }
+  const float a = __fsub_rn(y.x, x0), c = __fsub_rn(y.y, x1),
+              e = __fsub_rn(y.z, x2);
+  return dot3(a, c, e, a, c, e);
+}
+
+// Take candidate t of the chunk at j0 if it beats (best, best_j): strictly
+// smaller, or, in the sentinel form's points output, equal with a lower
+// (j mod 8). kChunk is a multiple of 8, so t & 7 == j & 7.
 template <int kForm, bool kPoints>
+__device__ __forceinline__ void consider(float d2, int t, int j0, float& best,
+                                         int& best_j) {
+  bool take = d2 < best;
+  if (kForm == kSentinel && kPoints) {
+    take = take || (d2 == best && (t & 7) < (best_j & 7));
+  }
+  if (take) {
+    best = d2;
+    best_j = j0 + t;
+  }
+}
+
+// This thread's kStage points of a chunk of ``len`` dst points at ``y``.
+__device__ __forceinline__ void load_chunk(const float* __restrict__ y, int len,
+                                           float (&y0)[kStage],
+                                           float (&y1)[kStage],
+                                           float (&y2)[kStage]) {
+#pragma unroll
+  for (int u = 0; u < kStage; ++u) {
+    const int t = min((int)threadIdx.x + u * kThreads, len - 1);
+    y0[u] = y[t * 3 + 0];
+    y1[u] = y[t * 3 + 1];
+    y2[u] = y[t * 3 + 2];
+  }
+}
+
+// (d2, j) as one integer that orders like (d2, j) for d2 >= +0.
+__device__ __forceinline__ unsigned long long pack_key(float d2, int j) {
+  return ((unsigned long long)__float_as_uint(d2) << 32) | (unsigned)j;
+}
+
+// kSplit: the block sweeps only the chunks of its slice (blockIdx.z) and
+// merges into ``keys``, which the caller filled with pack_key(kBig, 0);
+// nn_finish_kernel writes the outputs.
+template <int kForm, bool kPoints, int kR, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 masked_nn_kernel(const float* __restrict__ src, const float* __restrict__ dst,
-                 const uint8_t* __restrict__ mask, int n, int m,
+                 const uint8_t* __restrict__ mask,
+                 const uint8_t* __restrict__ src_mask, int n, int m,
                  int32_t* __restrict__ idx_out, float* __restrict__ pts_out,
-                 float* __restrict__ dist_out) {
+                 float* __restrict__ dist_out,
+                 unsigned long long* __restrict__ keys) {
+  static_assert(!kSplit || (!kPoints && kForm != kExpanded),
+                "only the index output of a form with d2 >= +0 is split");
   __shared__ float4 ys[kChunk];      // (y0, y1, y2, |y|^2)
-  __shared__ uint8_t ok[kChunk];
 
   const int b = blockIdx.y;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = i < n;
-  const float* s = src + ((size_t)b * n + (live ? i : 0)) * 3;
-  const float x0 = s[0], x1 = s[1], x2 = s[2];
-  const float xsq = dot3(x0, x1, x2, x0, x1, x2);
+  const int base = blockIdx.x * (kThreads * kR) + threadIdx.x;
+  float x0[kR], x1[kR], x2[kR], xsq[kR], best[kR];
+  int best_j[kR];
+  bool wanted[kR];                   // in range and not masked out
+  bool any_wanted = false;
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int i = base + r * kThreads;
+    const bool in = i < n;
+    const size_t o = (size_t)b * n + (in ? i : 0);
+    wanted[r] = in && (src_mask == nullptr || src_mask[o]);
+    any_wanted |= wanted[r];
+    x0[r] = src[o * 3 + 0];
+    x1[r] = src[o * 3 + 1];
+    x2[r] = src[o * 3 + 2];
+    xsq[r] = dot3(x0[r], x1[r], x2[r], x0[r], x1[r], x2[r]);
+    best[r] = kBig;
+    best_j[r] = 0;
+  }
   const float* d = dst + (size_t)b * m * 3;
   const uint8_t* mk = mask + (size_t)b * m;
 
-  float best = kBig;
-  int best_j = 0;
-  for (int j0 = 0; j0 < m; j0 += kChunk) {
+  // a block with no wanted src point sweeps nothing
+  const bool sweep = __syncthreads_or(any_wanted);
+  const int chunks = sweep ? (m + kChunk - 1) / kChunk : 0;
+  for (int c = kSplit ? blockIdx.z : 0; c < chunks;
+       c += kSplit ? gridDim.z : 1) {
+    const int j0 = c * kChunk;
     const int len = min(kChunk, m - j0);
-    __syncthreads();                 // previous chunk fully consumed
-    for (int t = threadIdx.x; t < len; t += kThreads) {
-      const float* y = d + (size_t)(j0 + t) * 3;
-      if (kForm == kSentinel) {      // fold the mask into the coordinates
-        ys[t] = mk[j0 + t] ? make_float4(y[0], y[1], y[2], 0.0f)
-                           : make_float4(kSentinelCoord, kSentinelCoord,
-                                         kSentinelCoord, 0.0f);
+    // stage 1: the chunk's mask, kStage independent byte loads a thread
+    uint8_t v[kStage];
+    bool any_valid = false;
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int t = threadIdx.x + u * kThreads;
+      v[u] = t < len ? mk[j0 + t] : 0;
+      any_valid |= v[u] != 0;
+    }
+    // stage 2: the coordinates, whatever the mask says: independent loads
+    // that cost one latency. A one-pass sweep starts them before the
+    // barrier, beside the mask's; a split sweep, most of whose chunks are
+    // padding, after it, for the chunks that stay.
+    float y0[kStage], y1[kStage], y2[kStage];
+    if (!kSplit) load_chunk(d + (size_t)j0 * 3, len, y0, y1, y2);
+    // one barrier: the previous chunk is fully consumed, and "any valid"
+    if (kForm == kSentinel) {
+      __syncthreads();
+    } else if (!__syncthreads_or(any_valid)) {
+      continue;
+    }
+    if (kSplit) load_chunk(d + (size_t)j0 * 3, len, y0, y1, y2);
+    // the mask is folded in: an invalid dst is the sentinel (a candidate
+    // like any other) or lies at +inf (never taken)
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int t = threadIdx.x + u * kThreads;
+      float4 yv;
+      if (kForm == kSentinel) {
+        yv = v[u] ? make_float4(y0[u], y1[u], y2[u], 0.0f)
+                  : make_float4(kSentinelCoord, kSentinelCoord,
+                                kSentinelCoord, 0.0f);
+      } else if (kForm == kExpanded) {
+        yv = v[u] ? make_float4(y0[u], y1[u], y2[u],
+                                dot3(y0[u], y1[u], y2[u], y0[u], y1[u], y2[u]))
+                  : make_float4(0.0f, 0.0f, 0.0f, CUDART_INF_F);
       } else {
-        const float y0 = y[0], y1 = y[1], y2 = y[2];
-        ys[t] = make_float4(y0, y1, y2, dot3(y0, y1, y2, y0, y1, y2));
-        ok[t] = mk[j0 + t];
+        yv = v[u] ? make_float4(y0[u], y1[u], y2[u], 0.0f)
+                  : make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F,
+                                0.0f);
       }
+      if (t < len) ys[t] = yv;
     }
     __syncthreads();
-#pragma unroll 4
-    for (int t = 0; t < len; ++t) {
+    // groups of kGroup candidates: their d2 are independent, a tree of
+    // fminf gives the group's minimum, and only a group that can change
+    // the result looks for the index of that minimum
+    const int grouped = len - len % kGroup;
+    for (int t = 0; t < grouped; t += kGroup) {
+      float4 y[kGroup];
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g) y[g] = ys[t + g];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        float dd[kGroup];
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) {
+          dd[g] = dist2<kForm>(x0[r], x1[r], x2[r], xsq[r], y[g]);
+        }
+        float lo[kGroup];
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) lo[g] = dd[g];
+#pragma unroll
+        for (int w = kGroup / 2; w >= 1; w /= 2) {
+#pragma unroll
+          for (int g = 0; g < w; ++g) lo[g] = fminf(lo[g], lo[g + w]);
+        }
+        // fminf passes over a NaN, which `<` never takes either
+        constexpr bool kTies = kForm == kSentinel && kPoints;
+        if (!(kTies ? lo[0] <= best[r] : lo[0] < best[r])) continue;
+        // the sweep in index order would leave the group's minimum at its
+        // first occurrence: under strict `<`, and under the points form's
+        // tie rule too, since j mod 8 grows with g inside an aligned group
+        int first = kGroup - 1;
+#pragma unroll
+        for (int g = kGroup - 2; g >= 0; --g) {
+          if (dd[g] == lo[0]) first = g;
+        }
+        if (kTies && lo[0] == best[r] &&
+            ((t + first) & 7) >= (best_j[r] & 7)) {
+          continue;                  // the carry keeps the lower j mod 8
+        }
+        best[r] = lo[0];
+        best_j[r] = j0 + t + first;
+      }
+    }
+    for (int t = grouped; t < len; ++t) {      // the ragged end of dst
       const float4 y = ys[t];
-      float d2;
-      if (kForm == kExpanded) {
-        const float cross = dot3(x0, x1, x2, y.x, y.y, y.z);
-        d2 = __fadd_rn(__fsub_rn(xsq, __fmul_rn(2.0f, cross)), y.w);
-      } else {
-        const float a = __fsub_rn(y.x, x0), c = __fsub_rn(y.y, x1),
-                    e = __fsub_rn(y.z, x2);
-        d2 = dot3(a, c, e, a, c, e);
-      }
-      bool take;
-      if (kForm != kSentinel) {
-        take = ok[t] && d2 < best;
-      } else if (kPoints) {          // ties: lowest (j mod 8), then lowest j
-        take = d2 < best || (d2 == best && (t & 7) < (best_j & 7));
-      } else {
-        take = d2 < best;
-      }
-      if (take) {
-        best = d2;
-        best_j = j0 + t;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        consider<kForm, kPoints>(
+            dist2<kForm>(x0[r], x1[r], x2[r], xsq[r], y), t, j0, best[r],
+            best_j[r]);
       }
     }
   }
-  if (!live) return;
 
-  const size_t o = (size_t)b * n + i;
-  dist_out[o] = sqrtf(fmaxf(best, 0.0f));
-  if (kPoints) {
-    const float* y = d + (size_t)best_j * 3;
-    float p0, p1, p2;
-    if (kForm == kSentinel) {
-      const bool v = mk[best_j];
-      p0 = v ? y[0] : kSentinelCoord;
-      p1 = v ? y[1] : kSentinelCoord;
-      p2 = v ? y[2] : kSentinelCoord;
-    } else {
-      const bool found = best < kBig;
-      p0 = found ? y[0] : 0.0f;
-      p1 = found ? y[1] : 0.0f;
-      p2 = found ? y[2] : 0.0f;
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int i = base + r * kThreads;
+    if (i >= n) continue;
+    const size_t o = (size_t)b * n + i;
+    const bool found = wanted[r] && best[r] < kBig;
+    if (kSplit) {
+      if (found) atomicMin(&keys[o], pack_key(best[r], best_j[r]));
+      continue;
     }
-    pts_out[o * 3 + 0] = p0;
-    pts_out[o * 3 + 1] = p1;
-    pts_out[o * 3 + 2] = p2;
-  } else {
-    idx_out[o] = min(best_j, m - 1);
+    const int j = found ? best_j[r] : 0;
+    dist_out[o] = sqrtf(fmaxf(found ? best[r] : kBig, 0.0f));
+    if (kPoints) {
+      float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f;
+      if (found) {
+        const float* y = d + (size_t)j * 3;
+        const bool v = kForm != kSentinel || mk[j];
+        p0 = v ? y[0] : kSentinelCoord;
+        p1 = v ? y[1] : kSentinelCoord;
+        p2 = v ? y[2] : kSentinelCoord;
+      }
+      pts_out[o * 3 + 0] = p0;
+      pts_out[o * 3 + 1] = p1;
+      pts_out[o * 3 + 2] = p2;
+    } else {
+      idx_out[o] = min(j, m - 1);
+    }
   }
+}
+
+// The second pass of a split sweep: keys -> idx, dist. A key nobody lowered
+// is pack_key(kBig, 0): idx 0, dist 1e15.
+__global__ void nn_finish_kernel(const unsigned long long* __restrict__ keys,
+                                 int total, int m, int32_t* __restrict__ idx_out,
+                                 float* __restrict__ dist_out) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= total) return;
+  const unsigned long long key = keys[o];
+  const float best = __uint_as_float((unsigned)(key >> 32));
+  dist_out[o] = sqrtf(fmaxf(best, 0.0f));
+  idx_out[o] = min((int)(unsigned)(key & 0xffffffffu), m - 1);
+}
+
+struct Args {
+  const float* src;
+  const float* dst;
+  const uint8_t* mask;
+  const uint8_t* src_mask;
+  int b, n, m, slices;
+  int32_t* idx;
+  float* pts;
+  float* dist;
+  unsigned long long* keys;
+  cudaStream_t stream;
+};
+
+template <int kForm, bool kPoints, int kR>
+cudaError_t launch(const Args& a) {
+  const dim3 grid((a.n + kThreads * kR - 1) / (kThreads * kR), a.b, a.slices);
+  if (a.slices == 1) {
+    masked_nn_kernel<kForm, kPoints, kR, false><<<grid, kThreads, 0, a.stream>>>(
+        a.src, a.dst, a.mask, a.src_mask, a.n, a.m, a.idx, a.pts, a.dist,
+        nullptr);
+    return cudaGetLastError();
+  }
+  if constexpr (!kPoints && kForm != kExpanded) {
+    if (a.keys == nullptr) return cudaErrorInvalidValue;
+    masked_nn_kernel<kForm, false, kR, true><<<grid, kThreads, 0, a.stream>>>(
+        a.src, a.dst, a.mask, a.src_mask, a.n, a.m, nullptr, nullptr, nullptr,
+        a.keys);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const int total = a.b * a.n;
+    nn_finish_kernel<<<(total + 255) / 256, 256, 0, a.stream>>>(
+        a.keys, total, a.m, a.idx, a.dist);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;      // this instantiation cannot be split
 }
 
 template <int kForm, bool kPoints>
-void launch(const float* src, const float* dst, const uint8_t* mask, int b,
-            int n, int m, int32_t* idx, float* pts, float* dist,
-            cudaStream_t stream) {
-  const dim3 grid((n + kThreads - 1) / kThreads, b);
-  masked_nn_kernel<kForm, kPoints>
-      <<<grid, kThreads, 0, stream>>>(src, dst, mask, n, m, idx, pts, dist);
+cudaError_t launch_r(const Args& a, int r) {
+  switch (r) {
+    case 1: return launch<kForm, kPoints, 1>(a);
+    case 2: return launch<kForm, kPoints, 2>(a);
+    case 4: return launch<kForm, kPoints, 4>(a);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <int kForm>
-void launch_form(const float* src, const float* dst, const uint8_t* mask,
-                 int b, int n, int m, int points, int32_t* idx, float* pts,
-                 float* dist, cudaStream_t stream) {
-  if (points) launch<kForm, true>(src, dst, mask, b, n, m, idx, pts, dist, stream);
-  else        launch<kForm, false>(src, dst, mask, b, n, m, idx, pts, dist, stream);
+cudaError_t launch_form(const Args& a, int points, int r) {
+  return points ? launch_r<kForm, true>(a, r) : launch_r<kForm, false>(a, r);
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes. ``form`` is 0 (expanded), 1 (elementwise)
 // or 2 (sentinel). ``out`` is the (B,N) int32 index buffer when points == 0,
-// else the (B,N,3) float32 points buffer. Returns the cudaError_t of the
-// launch (0 on success; cudaErrorInvalidValue for an unknown form).
+// else the (B,N,3) float32 points buffer. ``src_mask`` is a (B,N) byte mask
+// or null (every src point wanted). ``r`` is the number of src points a
+// thread owns (1, 2 or 4). ``slices`` > 1 splits dst over that many blocks
+// (index output of the elementwise and sentinel forms only); ``keys`` is then
+// a (B,N) 64-bit buffer filled with the bits of 1e30f in the upper half and
+// 0 in the lower. Returns the cudaError_t of the launch (0 on success;
+// cudaErrorInvalidValue for an unknown form, r, or a split that the
+// instantiation does not have).
 extern "C" int icpflow_masked_nn(const void* src, const void* dst,
-                                 const void* mask, int b, int n, int m,
-                                 int form, int points, void* out,
-                                 void* dist, void* stream) {
-  const float* s = static_cast<const float*>(src);
-  const float* d = static_cast<const float*>(dst);
-  const uint8_t* mk = static_cast<const uint8_t*>(mask);
-  float* dd = static_cast<float*>(dist);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int32_t* idx = points ? nullptr : static_cast<int32_t*>(out);
-  float* pts = points ? static_cast<float*>(out) : nullptr;
+                                 const void* mask, const void* src_mask,
+                                 int b, int n, int m, int form, int points,
+                                 int r, int slices, void* out, void* dist,
+                                 void* keys, void* stream) {
+  if (slices < 1 || slices > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  a.src = static_cast<const float*>(src);
+  a.dst = static_cast<const float*>(dst);
+  a.mask = static_cast<const uint8_t*>(mask);
+  a.src_mask = static_cast<const uint8_t*>(src_mask);
+  a.b = b;
+  a.n = n;
+  a.m = m;
+  a.slices = slices;
+  a.idx = points ? nullptr : static_cast<int32_t*>(out);
+  a.pts = points ? static_cast<float*>(out) : nullptr;
+  a.dist = static_cast<float*>(dist);
+  a.keys = static_cast<unsigned long long*>(keys);
+  a.stream = static_cast<cudaStream_t>(stream);
   switch (form) {
-    case kExpanded:
-      launch_form<kExpanded>(s, d, mk, b, n, m, points, idx, pts, dd, st);
-      break;
-    case kElementwise:
-      launch_form<kElementwise>(s, d, mk, b, n, m, points, idx, pts, dd, st);
-      break;
-    case kSentinel:
-      launch_form<kSentinel>(s, d, mk, b, n, m, points, idx, pts, dd, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case kExpanded: return static_cast<int>(launch_form<kExpanded>(a, points, r));
+    case kElementwise: return static_cast<int>(launch_form<kElementwise>(a, points, r));
+    case kSentinel: return static_cast<int>(launch_form<kSentinel>(a, points, r));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

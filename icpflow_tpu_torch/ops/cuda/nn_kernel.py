@@ -7,19 +7,32 @@ name keyed by a hash of the source and the flags, and loaded with
 without CUDA.
 
 ``launches`` counts kernel launches made through :func:`masked_nn_cuda`,
-and ``variant_launches`` counts them per instantiation
-(``nn_{expanded|elementwise|sentinel}_{index|points}``). Set them to 0
-before a run and read them after, to show the run went through the kernel.
+``variant_launches`` counts them per instantiation
+(``nn_{expanded|elementwise|sentinel}_{index|points}``) and
+``shape_launches`` per (instantiation, B, N, M). Set them to 0 before a run
+and read them after, to show the run went through the kernel.
+
+``on_launch``, when set to a callable, is called as ``on_launch(name, src,
+dst, dst_mask, src_mask)`` just before each launch, so that a measuring
+script can read the valid counts of a run's inputs. It is ``None`` by
+default and then costs one comparison a launch.
+
+:func:`bound_ms` and :func:`io_ms` give the least time the card could take
+for one launch: the kernel is bound by the FP32 rate of the CUDA cores,
+counted on the valid (src, dst) pairs; the bytes it must move are far
+below that.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
 import shutil
+import struct
 import subprocess
 import tempfile
 import time
@@ -30,13 +43,29 @@ _PKG = pathlib.Path(__file__).resolve().parents[2]
 SOURCE = _PKG / "csrc" / "nn_kernel.cu"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 FORMS = ("expanded", "elementwise", "sentinel")   # the C entry's form codes
+THREADS = 128            # kThreads and kChunk of the source
+CHUNK = 512
+BLOCKS_PER_SM = 4        # blocks a multiprocessor should have to choose from
+SPLIT_MIN_M = 8192       # dst slots above which few blocks split their sweep
+SPLIT_SLICES = 64
+# the scratch of a split sweep starts at (1e30f, 0): float bits << 32 | index
+_NONE_KEY = int(struct.unpack("<I", struct.pack("<f", 1e30))[0]) << 32
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet): 67 TFLOP/s of float32
+# outside the tensor cores counts an FMA as two operations; this kernel
+# contracts none, so it does at most half that many lane-operations.
+FP32_LANE_OPS_PER_S = 33.5e12
+HBM_BYTES_PER_S = 3.35e12
 
 launches = 0
 variant_launches: collections.Counter = collections.Counter()
+shape_launches: collections.Counter = collections.Counter()
+on_launch = None         # callable(name, src, dst, dst_mask, src_mask) | None
 build_seconds = None     # wall seconds of the last nvcc build (None: cached)
+build_log = ""           # what that build printed: ptxas -v, per kernel
 _lib = None
 
 
@@ -66,7 +95,7 @@ def build(force: bool = False) -> pathlib.Path:
 
     Raises ``RuntimeError`` with the compiler's output if nvcc fails.
     """
-    global build_seconds
+    global build_seconds, build_log
     out = library_path()
     if out.exists() and not force:
         return out
@@ -88,6 +117,7 @@ def build(force: bool = False) -> pathlib.Path:
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                 f"{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)
+        build_log = proc.stderr
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
@@ -102,47 +132,118 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         fn = lib.icpflow_masked_nn
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+            + [ctypes.c_void_p] * 4
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def kernel_name(form: str, points: bool) -> str:
     return f"nn_{form}_{'points' if points else 'index'}"
 
 
+def candidate_ops(form: str, points: bool) -> int:
+    """FP32 lane-operations one (src, dst) candidate costs: 8 for the
+    distance in any form, a compare and 2 selects; the sentinel form's
+    points output adds its tie compare (``csrc/nn_kernel.cu``)."""
+    if form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
+    return 12 if form == "sentinel" and points else 11
+
+
+def bound_ms(valid_pairs: float, form: str, points: bool) -> float:
+    """Least milliseconds one H100 could take for a sweep over
+    ``valid_pairs`` (src, dst) candidates: their FP32 operations, none of
+    them contracted into an FMA, at the card's peak FP32 rate. That rate
+    bounds the kernel, not bytes (:func:`io_ms` is far smaller at every
+    shape in use). The masked forms need only pairs of a valid src and a
+    valid dst; the sentinel forms keep every dst a candidate."""
+    return candidate_ops(form, points) * valid_pairs / FP32_LANE_OPS_PER_S * 1e3
+
+
+def io_ms(b: int, n: int, m: int, points: bool, src_mask: bool = False) -> float:
+    """Milliseconds to move one launch's bytes at the card's memory rate:
+    src, dst and the masks read once, the outputs written once."""
+    nbytes = b * (12 * n + 13 * m + (n if src_mask else 0)
+                  + (12 if points else 4) * n + 4 * n)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_plan(b: int, n: int, m: int, form: str, points: bool,
+                sms: int) -> tuple[int, int]:
+    """(src points per thread, dst slices) of one launch on a card with
+    ``sms`` multiprocessors.
+
+    A block covers ``THREADS * r`` src points of one batch row. The widest
+    ``r`` (no wider than the row) that still leaves ``BLOCKS_PER_SM`` blocks
+    for each multiprocessor runs in one pass; a smaller grid takes ``r = 1``,
+    the most warps it can have. Only a long sweep by few blocks is split
+    (the odometry's: one batch row against a map of ``m > SPLIT_MIN_M``
+    slots): the index output of the elementwise and sentinel forms then
+    spreads dst over ``SPLIT_SLICES`` blocks (at most one per chunk). That
+    is far more blocks than one pass wants, because blocks of masked-out src
+    points and slices of padding leave at once, and what is left should
+    still fill the card. A split costs a scratch fill and a finish pass,
+    which a short sweep does not earn back."""
+    def blocks(r):
+        return b * -(-n // (THREADS * r))
+
+    for r in (4, 2, 1):
+        if (r == 1 or THREADS * r <= n) and blocks(r) >= BLOCKS_PER_SM * sms:
+            return r, 1
+    if points or form == "expanded" or m <= SPLIT_MIN_M:
+        return 1, 1
+    return 1, min(-(-m // CHUNK), SPLIT_SLICES)
+
+
 def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
-                   dst_mask: torch.Tensor, *, form: str,
-                   points: bool) -> tuple[torch.Tensor, torch.Tensor]:
+                   dst_mask: torch.Tensor, *, form: str, points: bool,
+                   src_mask: torch.Tensor | None = None,
+                   plan: tuple[int, int] | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel. Returns (idx (B,N) int32 | pts (B,N,3) f32,
     dist (B,N) f32).
 
     ``form`` is one of :data:`FORMS` (see ``ops/knn.py``). src (B,N,3) and
-    dst (B,M,3) float32, dst_mask (B,M) bool, all contiguous on one CUDA
-    device. Anything else raises ``ValueError``.
+    dst (B,M,3) float32, dst_mask (B,M) bool and, where given, src_mask
+    (B,N) bool, all contiguous on one CUDA device. Anything else raises
+    ``ValueError``. A src point that ``src_mask`` marks False is not swept:
+    it gets idx 0, dist 1e15 and the point (0,0,0). ``plan`` overrides
+    :func:`launch_plan` (tests and tuning): (src points per thread in
+    1 | 2 | 4, dst slices >= 1); the result does not depend on it.
     """
     global launches
     if form not in FORMS:
         raise ValueError(f"form must be one of {FORMS}, got {form!r}")
-    for name, t, dt in (("src", src, torch.float32), ("dst", dst, torch.float32),
-                        ("dst_mask", dst_mask, torch.bool)):
+    tensors = [("src", src, torch.float32), ("dst", dst, torch.float32),
+               ("dst_mask", dst_mask, torch.bool)]
+    if src_mask is not None:
+        tensors.append(("src_mask", src_mask, torch.bool))
+    for name, t, dt in tensors:
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
         if t.dtype != dt:
             raise ValueError(f"{name} must be {dt}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if src.device != dst.device or dst.device != dst_mask.device:
-        raise ValueError("src, dst and dst_mask must share one device")
+        if t.device != src.device:
+            raise ValueError("src, dst and the masks must share one device")
     if src.dim() != 3 or src.shape[2] != 3 or dst.dim() != 3 \
             or dst.shape[2] != 3 or dst.shape[0] != src.shape[0] \
-            or tuple(dst_mask.shape) != tuple(dst.shape[:2]):
-        raise ValueError(f"bad shapes src {tuple(src.shape)} dst "
-                         f"{tuple(dst.shape)} mask {tuple(dst_mask.shape)}")
+            or tuple(dst_mask.shape) != tuple(dst.shape[:2]) \
+            or (src_mask is not None
+                and tuple(src_mask.shape) != tuple(src.shape[:2])):
+        raise ValueError(
+            f"bad shapes src {tuple(src.shape)} dst {tuple(dst.shape)} mask "
+            f"{tuple(dst_mask.shape)} src_mask "
+            f"{None if src_mask is None else tuple(src_mask.shape)}")
     b, n, _ = src.shape
     m = dst.shape[1]
     if m < 1:
@@ -160,14 +261,30 @@ def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
     if b == 0 or n == 0:
         return out, dist
     lib = load()
+    r, slices = plan if plan is not None else launch_plan(
+        b, n, m, form, points, _sm_count(src.device))
+    if r not in (1, 2, 4) or slices < 1:
+        raise ValueError(f"bad plan {(r, slices)}")
+    if slices > 1 and (points or form == "expanded"):
+        raise ValueError(f"{kernel_name(form, points)} cannot split dst")
+    keys = None
+    if slices > 1:
+        keys = torch.full((b, n), _NONE_KEY, dtype=torch.int64,
+                          device=src.device)
+    name = kernel_name(form, points)
+    if on_launch is not None:
+        on_launch(name, src, dst, dst_mask, src_mask)
     with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(src.device).cuda_stream
         err = lib.icpflow_masked_nn(
-            src.data_ptr(), dst.data_ptr(), dst_mask.data_ptr(), b, n, m,
-            FORMS.index(form), int(points), out.data_ptr(), dist.data_ptr(),
+            src.data_ptr(), dst.data_ptr(), dst_mask.data_ptr(),
+            None if src_mask is None else src_mask.data_ptr(), b, n, m,
+            FORMS.index(form), int(points), r, slices, out.data_ptr(),
+            dist.data_ptr(), None if keys is None else keys.data_ptr(),
             stream)
     if err != 0:
         raise RuntimeError(f"masked_nn kernel launch failed: cudaError {err}")
     launches += 1
-    variant_launches[kernel_name(form, points)] += 1
+    variant_launches[name] += 1
+    shape_launches[(name, b, n, m)] += 1
     return out, dist

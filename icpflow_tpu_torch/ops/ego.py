@@ -78,7 +78,9 @@ def register_frame_icp(source: torch.Tensor, source_valid: torch.Tensor,
     translation-only phase (rotation frozen at the initial guess) runs to
     its fixpoint, the full-DOF phase continues from there, and the pose
     with the lower saturated robust cost (0.1 m kernel) is returned, the
-    full-DOF one on a tie. The NN sweep is ``masked_nn(..., exact=True)``.
+    full-DOF one on a tie. The NN sweep is ``masked_nn(..., exact=True)``
+    over the valid source points only: the others carry weight 0 in every
+    step and in the score, whatever their neighbour.
     """
     f32 = torch.float32
     dev = source.device
@@ -93,7 +95,8 @@ def register_frame_icp(source: torch.Tensor, source_valid: torch.Tensor,
     def nn_dist(pose):
         moved = geo.transform_points_batch(source[None], pose[None])
         idx, dist = _knn.masked_nn(moved, map_pts[None], map_valid[None],
-                                   tile=tile, exact=True)
+                                   tile=tile, exact=True,
+                                   src_mask=source_valid[None])
         return idx[0], dist[0]
 
     R0 = initial_guess[:3, :3]

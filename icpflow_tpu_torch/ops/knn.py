@@ -100,10 +100,13 @@ def _tile_d2(x, y, src_sq, form):
 
 def masked_nn_plain(src: torch.Tensor, dst: torch.Tensor,
                     dst_mask: torch.Tensor, *, form: str,
-                    points: bool, tile: int = 2048):
+                    points: bool, tile: int = 2048,
+                    src_mask: torch.Tensor | None = None):
     """Plain PyTorch sweep, tiled over dst. Same contract and the same
     arithmetic as the kernel: returns (idx (B,N) int32 | pts (B,N,3),
-    dist (B,N)). The result does not depend on the tile size."""
+    dist (B,N)). The result does not depend on the tile size. A src point
+    that ``src_mask`` (B,N) marks False gets idx 0, dist 1e15 and the point
+    (0,0,0) in every form."""
     global plain_calls
     if form not in _cuda.FORMS:
         raise ValueError(f"form must be one of {_cuda.FORMS}, got {form!r}")
@@ -146,6 +149,10 @@ def masked_nn_plain(src: torch.Tensor, dst: torch.Tensor,
                            & (carry_key(tile_arg + t0) < carry_key(best_i)))
         best_d = torch.where(take, tile_min, best_d)
         best_i = torch.where(take, tile_arg + t0, best_i)
+    if src_mask is not None:
+        wanted = src_mask.bool()
+        best_d = torch.where(wanted, best_d, torch.full_like(best_d, _BIG))
+        best_i = torch.where(wanted, best_i, torch.zeros_like(best_i))
     best_i = torch.clamp(best_i, max=m - 1)
     dist = torch.sqrt(torch.clamp(best_d, min=0.0))
     if not points:
@@ -154,36 +161,45 @@ def masked_nn_plain(src: torch.Tensor, dst: torch.Tensor,
     if not sentinel:
         no_valid = ~torch.any(mask, dim=1)
         pts = torch.where(no_valid[:, None, None], torch.zeros_like(pts), pts)
+    if src_mask is not None:
+        pts = torch.where(wanted[:, :, None], pts, torch.zeros_like(pts))
     return pts, dist
 
 
-def _sweep(src, dst, dst_mask, *, form, points, tile):
+def _sweep(src, dst, dst_mask, *, form, points, tile, src_mask):
     if src.is_cuda:
         return _cuda.masked_nn_cuda(
             src.float().contiguous(), dst.float().contiguous(),
-            dst_mask.bool().contiguous(), form=form, points=points)
+            dst_mask.bool().contiguous(), form=form, points=points,
+            src_mask=None if src_mask is None
+            else src_mask.bool().contiguous())
     if src.device.type != "cpu":
         raise ValueError(f"no NN sweep for device {src.device}")
     return masked_nn_plain(src, dst, dst_mask, form=form, points=points,
-                           tile=tile)
+                           tile=tile, src_mask=src_mask)
 
 
 def masked_nn(src: torch.Tensor, dst: torch.Tensor, dst_mask: torch.Tensor,
-              tile: int = 2048, exact: bool = False):
+              tile: int = 2048, exact: bool = False,
+              src_mask: torch.Tensor | None = None):
     """For each src point, index and euclidean distance of the nearest
     valid dst. src (B,N,3), dst (B,M,3), dst_mask (B,M).
-    Returns idx (B,N) int32 (0 if none valid), dist (B,N)."""
+    Returns idx (B,N) int32 (0 if none valid), dist (B,N). ``src_mask``
+    (B,N), where given, names the src points whose result is read: the
+    others are not swept and get idx 0, dist 1e15."""
     return _sweep(src, dst, dst_mask, form=sweep_form(dst.shape[1], exact),
-                  points=False, tile=tile)
+                  points=False, tile=tile, src_mask=src_mask)
 
 
 def masked_nn_points(src: torch.Tensor, dst: torch.Tensor,
-                     dst_mask: torch.Tensor, tile: int = 2048):
+                     dst_mask: torch.Tensor, tile: int = 2048,
+                     src_mask: torch.Tensor | None = None):
     """For each src point: coordinates (B,N,3) and distance (B,N) of the
     nearest valid dst (where none is valid: zeros and 1e15, or the sentinel
-    and its distance under the sentinel form)."""
+    and its distance under the sentinel form). ``src_mask`` as in
+    :func:`masked_nn`: the other src points get zeros and 1e15."""
     return _sweep(src, dst, dst_mask, form=sweep_form(dst.shape[1], False),
-                  points=True, tile=tile)
+                  points=True, tile=tile, src_mask=src_mask)
 
 
 def masked_nn_error(src: torch.Tensor, src_mask: torch.Tensor,
