@@ -13,8 +13,8 @@ Phases, one line each, any failure ends with a non-zero exit:
    duplicates, ragged M, N = 1, an equidistant tie; prefix masks of 0, 1,
    chunk - 1, chunk, chunk + 1 and all dst, a hole of more than two chunks,
    duplicates across a slice boundary, src masks with an all-invalid block,
-   one valid point, a prefix and nothing valid), every launch plan (src
-   points a thread, dst slices) against the wrapper's own, bit for bit.
+   one valid point, a prefix and nothing valid), one pass and 2, 3 and 5 dst
+   slices against the wrapper's own choice, bit for bit.
    Kernel, plain version and the library call (``torch.cdist`` + ``min``,
    timed only) by CUDA events, beside the bound on the valid pairs;
 4. frame-pair path: ``run_frame_pair`` at the bench configuration on the
@@ -29,15 +29,17 @@ Phases, one line each, any failure ends with a non-zero exit:
    default policy, after a two-frame warm-up; each frame is checked
    against the GT pose and flow and against ``JAX_STREAM_REFERENCE``.
 
-6. launch table: both paths once more with every NN launch's inputs
-   kept, then each launched again alone: launches, valid pairs, kernel
-   milliseconds and bound per kernel and (N, M), a pair and a stream frame,
-   ranked by the time lost against the bound; the largest launch of each is
-   held against the plain version and timed like the shapes of phase 3.
+6. launch table: the launches per kernel and (B, N, M) are those phases 4
+   and 5 counted. Both paths then run once more with every NN launch's
+   inputs kept (the same launches, or the run fails), and each is launched
+   again alone: valid pairs, kernel milliseconds and bound per kernel and
+   (N, M), a pair and a stream frame, ranked by the time lost against the
+   bound; the largest launch of each is held against the plain version, src
+   mask included, and timed like the shapes of phase 3.
 
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after; they show it went through the kernels and never through
-the plain NN version. The last lines are the card (nvidia-smi), the kernel
+the plain NN version, and they are the launches the kernel table reports. The last lines are the card (nvidia-smi), the kernel
 table as JSON, and ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile`` instead profiles one warm stream frame
@@ -262,7 +264,7 @@ def phase_build():
     print(f"[build] {path.name} from {SOURCE} in "
           f"{nn_kernel.build_seconds:.2f} s", flush=True)
     # ptxas -v: registers and spills of every instantiation
-    # masked_nn_kernel<form, points output, src points a thread, split>
+    # masked_nn_kernel<form, points output, split>
     entries = re.findall(
         r"Compiling entry function '(\S+)' for 'sm_90a'.*?(\d+) bytes stack "
         r"frame, (\d+) bytes spill stores, (\d+) bytes spill loads.*?Used "
@@ -270,9 +272,9 @@ def phase_build():
     check(entries, "nvcc printed no ptxas -v lines")
     by_regs = {}
     for sym, stack, st, ld, regs in entries:
-        t = re.search(r"masked_nn_kernelILi(\d)ELb([01])ELi(\d)ELb([01])E", sym)
+        t = re.search(r"masked_nn_kernelILi(\d)ELb([01])ELb([01])E", sym)
         tag = ("nn_finish_kernel" if t is None else
-               "<{},{},{},{}>".format(*t.groups()))
+               "<{},{},{}>".format(*t.groups()))
         by_regs.setdefault((int(regs), int(stack), int(st), int(ld)),
                            []).append(tag)
     for (regs, stack, st, ld), tags in sorted(by_regs.items()):
@@ -433,7 +435,7 @@ def _time_case(name, form, points, s, d, mk, fill, src_mask=None):
     return entry
 
 
-def _explain(form, points, arrays, card, outs, src_mask=None, plan=None):
+def _explain(form, points, arrays, card, outs, src_mask=None, slices=None):
     """Why a kernel and its plain version disagree: the worst rows against
     a float64 reference on the host, and both sides run again on fresh
     card copies of the same inputs. Printed to stderr before the failure."""
@@ -444,7 +446,7 @@ def _explain(form, points, arrays, card, outs, src_mask=None, plan=None):
     (ko, kd), (po, pd) = outs
     gap = (kd - pd).abs().cpu().numpy()
     lines = [f"[mismatch] {nn_kernel.kernel_name(form, points)} "
-             f"B,N,M={src.shape[0]},{src.shape[1]},{dst.shape[1]} plan {plan} "
+             f"B,N,M={src.shape[0]},{src.shape[1]},{dst.shape[1]} slices {slices} "
              f"src_mask {src_mask is not None}: "
              f"{int((gap > 1e-5).sum())} dist entries differ, rows "
              f"{sorted(set(np.nonzero(gap > 1e-5)[0].tolist()))[:8]}; card "
@@ -465,7 +467,7 @@ def _explain(form, points, arrays, card, outs, src_mask=None, plan=None):
     fresh = [torch.as_tensor(a, device="cuda") for a in arrays]
     for tag, tensors in (("same tensors", card), ("fresh copies", fresh)):
         ko2, kd2 = nn_kernel.masked_nn_cuda(
-            *tensors, form=form, points=points, src_mask=src_mask, plan=plan)
+            *tensors, form=form, points=points, src_mask=src_mask, slices=slices)
         po2, pd2 = knn.masked_nn_plain(*tensors, form=form, points=points,
                                        src_mask=src_mask)
         torch.cuda.synchronize()
@@ -484,30 +486,30 @@ def _explain(form, points, arrays, card, outs, src_mask=None, plan=None):
     print("\n".join(lines), file=sys.stderr, flush=True)
 
 
-def _compare(form, points, src, dst, mask, src_mask=None, plan=None):
+def _compare(form, points, src, dst, mask, src_mask=None, slices=None):
     """Kernel vs plain on the card. Returns the max abs dist/point error,
     the kernel's and the plain version's outputs, and the card tensors.
-    ``src_mask`` (numpy or None) goes to both; ``plan`` overrides the
-    kernel's (src points per thread, dst slices)."""
+    ``src_mask`` (numpy or None) goes to both; ``slices`` overrides the
+    number of dst slices the wrapper would take."""
     import torch
     from icpflow_tpu_torch.ops import knn
     from icpflow_tpu_torch.ops.cuda import nn_kernel
     s, d, mk = (torch.as_tensor(a, device="cuda") for a in (src, dst, mask))
     sm = None if src_mask is None else torch.as_tensor(src_mask, device="cuda")
     ko, kd = nn_kernel.masked_nn_cuda(s, d, mk, form=form, points=points,
-                                      src_mask=sm, plan=plan)
+                                      src_mask=sm, slices=slices)
     po, pd = knn.masked_nn_plain(s, d, mk, form=form, points=points,
                                  src_mask=sm)
     torch.cuda.synchronize()
     what = (f"{nn_kernel.kernel_name(form, points)} "
-            f"B,N,M={src.shape[0]},{src.shape[1]},{dst.shape[1]} plan {plan}"
+            f"B,N,M={src.shape[0]},{src.shape[1]},{dst.shape[1]} slices {slices}"
             f"{'' if sm is None else ' with src_mask'}")
 
     def agree(cond, msg):
         if not cond:
             try:        # the report must not replace the failure below
                 _explain(form, points, (src, dst, mask), (s, d, mk),
-                         ((ko, kd), (po, pd)), sm, plan)
+                         ((ko, kd), (po, pd)), sm, slices)
             except Exception as e:
                 print(f"[mismatch] report failed: {e!r}", file=sys.stderr)
         check(cond, f"{what}: {msg}")
@@ -576,30 +578,29 @@ def _check_edges(name, form, points, k):
     return worst
 
 
-def _plans(form, points):
-    """(src points per thread, dst slices) to hold against each other:
-    None is the wrapper's own choice; only the index output of the
-    elementwise and sentinel forms can split dst."""
-    plans = [None, (1, 1), (2, 1), (4, 1)]
-    if not points and form != "expanded":
-        plans += [(1, 2), (2, 3), (4, 5)]
-    return plans
+def _slice_counts(form, points):
+    """dst slices to hold against each other: None is the wrapper's own
+    choice; only the index output of the elementwise and sentinel forms can
+    split dst."""
+    if points or form == "expanded":
+        return [None, 1]
+    return [None, 1, 2, 3, 5]
 
 
 def _check_fills(name, form, points, k):
-    """Padding, slices and src masks: every plan against the plain version
-    and, bit for bit, against the one-pass one-point plan. Returns the
+    """Padding, slices and src masks: every slice count against the plain
+    version and, bit for bit, against the wrapper's own choice. Returns the
     worst error."""
     import torch
     from icpflow_tpu_torch.ops.cuda.nn_kernel import CHUNK
     rng = np.random.default_rng(500 + k)
     cases = []                       # (what, src, dst, mask, src_mask)
-    # N = 300 is no multiple of a block's 128, 256 or 512 points; M = 2500
-    # is 3 chunks, the last ragged, so 2 slices hold 2 and 1 of them
+    # N = 300 is no multiple of a block's 128 points; M = 2500 is 5 chunks,
+    # the last ragged, so 2 slices hold 3 and 2 of them, 3 hold 2, 2 and 1
     src, dst, _ = _inputs(2, 300, 2500, 500 + k)
     for count in (0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 2500):
         cases.append((f"prefix of {count} dst", src, dst,
-                      np.broadcast_to(np.arange(2500) < count, (2, 2500)),
+                      np.tile(np.arange(2500) < count, (2, 1)),
                       None))
     src, dst, mask = _inputs(2, 300, 5000, 510 + k)
     mask[:, 700:700 + 2 * CHUNK + 400] = False
@@ -615,10 +616,10 @@ def _check_fills(name, form, points, k):
     some[:, 300] = True                          # a block with one valid point
     cases.append(("src_mask with holes", src, dst, mask, some))
     cases.append(("src_mask prefix", src, dst, mask,
-                  np.broadcast_to(np.arange(1300) < 77, (2, 1300))))
+                  np.tile(np.arange(1300) < 77, (2, 1))))
     cases.append(("src_mask all False", src, dst, mask,
                   np.zeros((2, 1300), bool)))
-    # one row against a long, mostly empty buffer: the wrapper's own plan
+    # one row against a long, mostly empty buffer: the wrapper's own choice
     # splits dst here, as for the odometry
     src, dst, _ = _inputs(1, 300, 9000, 540 + k)
     cases.append(("prefixes of a long dst", src, dst,
@@ -626,15 +627,15 @@ def _check_fills(name, form, points, k):
     worst = 0.0
     for what, src, dst, mask, sm in cases:
         first = None
-        for plan in _plans(form, points):
+        for slices in _slice_counts(form, points):
             err, (ko, kd), _, _ = _compare(form, points, src, dst, mask, sm,
-                                           plan)
+                                           slices)
             worst = max(worst, err)
             if first is None:
                 first = (ko, kd)
             check(torch.equal(ko, first[0]) and torch.equal(kd, first[1]),
-                  f"{name}: {what}: plan {plan} and the wrapper's own plan "
-                  "give different bits")
+                  f"{name}: {what}: {slices} slices and the wrapper's own "
+                  "choice give different bits")
         ko, kd = first
         if sm is not None:           # masked-out src: idx 0 / zeros, 1e15
             out = torch.as_tensor(~sm, device="cuda")
@@ -689,7 +690,7 @@ def _read_counts():
     from icpflow_tpu_torch.ops import knn
     from icpflow_tpu_torch.ops.cuda import nn_kernel
     return (nn_kernel.launches, dict(nn_kernel.variant_launches),
-            knn.plain_calls)
+            dict(nn_kernel.shape_launches), knn.plain_calls)
 
 
 def phase_main_path(card):
@@ -715,7 +716,7 @@ def phase_main_path(card):
             outs.append(out)
             times.append(timings)
         results.append((gap, src, dst, gt, dyn, outs, times))
-    launches, per_kernel, plain = _read_counts()
+    launches, per_kernel, per_shape, plain = _read_counts()
     check(launches > 0, "the frame-pair path launched no NN kernel")
     check(plain == 0, f"the frame-pair path called the plain NN {plain} times")
 
@@ -742,7 +743,8 @@ def phase_main_path(card):
               f"gap {gap} matched {m['matched']} vs JAX {ref['matched']}")
     print(f"[main] NN kernel launches {launches} {per_kernel}, plain NN "
           f"calls {plain}", flush=True)
-    return per_kernel
+    # every pair ran twice: the counts are those of 2 * len(pairs) pairs
+    return per_kernel, (per_shape, 2 * len(pairs))
 
 
 def _run_stream(cfg, scans):
@@ -784,13 +786,14 @@ def phase_stream(card):
     cfg = bench_config()
     scans, ego_gt, gts, dyns = stream_frames()
     _run_stream(cfg, scans[:2])          # warm-up: solver handles, caches
-    counts = {}
+    counts, shapes = {}, {}
     for variant in ("vpu2", "auto"):
         with _nn_variant(variant):
             _reset_counts()
             outs, times = _run_stream(cfg, scans)
-            launches, per_kernel, plain = _read_counts()
+            launches, per_kernel, per_shape, plain = _read_counts()
         counts[variant] = per_kernel
+        shapes[variant] = (per_shape, len(scans) - 1)
         check(outs[0] is None, "the first frame returned a result")
         for k in range(1, len(scans)):
             out, w = outs[k], times[k]
@@ -832,7 +835,7 @@ def phase_stream(card):
               f"the vpu2 stream did not launch {name}")
         check(counts["auto"].get(name, 0) == 0,
               f"the default stream launched {name}")
-    return counts["vpu2"]
+    return counts["vpu2"], shapes
 
 
 def _record_launches(run):
@@ -853,14 +856,31 @@ def _record_launches(run):
     return rec
 
 
-def _replay(label, unit, units, rec, reps):
+def _replay(label, unit, units, rec, counted, reps):
     """Launch every recorded input again, alone and timed by CUDA events,
     beside its valid pairs and its bound. Prints, per kernel and (N, M), the
     launches and milliseconds a ``unit`` (the record holds ``units`` of
     them) and returns those rows per kernel name, ranked by the time lost
-    against the bound. ``reps`` keeps the largest launch of each (kernel, N,
-    M) for the kernel-vs-plain-vs-library timing."""
+    against the bound. The launches are not the record's: they are
+    ``counted``, what the wrapper's ``shape_launches`` read after the path's
+    own run, as ({(kernel, B, N, M): launches}, units of that run); the
+    record must hold the same launches a unit, or the run fails. ``reps``
+    keeps the largest launch of each (kernel, N, M) for the
+    kernel-vs-plain-vs-library timing."""
     from icpflow_tpu_torch.ops.cuda import nn_kernel
+    per_shape, counted_units = counted
+    recorded = {}
+    for name, s, d, _, _ in rec:
+        key = (name, s.shape[0], s.shape[1], d.shape[1])
+        recorded[key] = recorded.get(key, 0) + 1
+    differ = sorted(k for k in set(recorded) | set(per_shape)
+                    if recorded.get(k, 0) * counted_units
+                    != per_shape.get(k, 0) * units)
+    check(not differ,
+          f"{label}: the recording pass ({units} {unit}s) and the path's own "
+          f"run ({counted_units}) launched differently at " + ", ".join(
+              f"{k}: {recorded.get(k, 0)} vs {per_shape.get(k, 0)}"
+              for k in differ[:6]))
     groups = {}
     for name, s, d, mk, sm in rec:
         form, points = KERNELS[name][:2]
@@ -873,23 +893,23 @@ def _replay(label, unit, units, rec, reps):
             n=n, m=m, b_min=b, b_max=b, launches=0, valid_pairs=0.0,
             swept_pairs=0.0, kernel_ms=0.0, bound_ms=0.0, shapes={}))
         g["b_min"], g["b_max"] = min(g["b_min"], b), max(g["b_max"], b)
-        g["launches"] += 1
         g["valid_pairs"] += pairs
         g["swept_pairs"] += float(b) * n * m
         g["kernel_ms"] += ms
         g["bound_ms"] += bound
-        g["shapes"][b] = g["shapes"].get(b, 0) + 1
         if (name, n, m) not in reps or reps[name, n, m][0] <= b:
             reps[name, n, m] = (b, label, (s, d, mk, sm))
     out = {}
     ranked = sorted(groups.items(),
                     key=lambda kv: kv[1]["bound_ms"] - kv[1]["kernel_ms"])
     for rank, ((name, n, m), g) in enumerate(ranked, 1):
-        for key in ("launches", "valid_pairs", "swept_pairs", "kernel_ms",
-                    "bound_ms"):
+        for key in ("valid_pairs", "swept_pairs", "kernel_ms", "bound_ms"):
             g[key] /= units
+        # [B, launches in the path's own run of ``counted_units`` units]
+        g["shapes"] = sorted([k[1], c] for k, c in per_shape.items()
+                             if (k[0], k[2], k[3]) == (name, n, m))
+        g["launches"] = sum(c for _, c in g["shapes"]) / counted_units
         g["lost_ms"] = g["kernel_ms"] - g["bound_ms"]
-        g["shapes"] = sorted([b, c] for b, c in g["shapes"].items())
         out.setdefault(name, []).append(g)
         print(f"[launches {label}] {rank}. {name} N,M={n},{m} B "
               f"{g['b_min']}-{g['b_max']}: {g['launches']:.2f} launches a "
@@ -900,12 +920,14 @@ def _replay(label, unit, units, rec, reps):
     return out
 
 
-def phase_launch_table(rows):
-    """Launches by shape and fill on each path, in a pass of its own that
-    no path's time includes: every launch's inputs are kept, then launched
-    again alone for the kernel's time beside its bound. The largest launch
-    of each (kernel, N, M) is then held against the plain version and timed
-    against it and the library call. Adds ``paths`` and the main-path
+def phase_launch_table(rows, counted):
+    """Launches by shape on each path as its own run counted them
+    (``counted``: label -> ({(kernel, B, N, M): launches}, units)), beside
+    their fill and time from a pass of its own that no path's time includes:
+    every launch's inputs are kept, then launched again alone for the
+    kernel's time beside its bound. The largest launch of each (kernel, N,
+    M) is then held against the plain version as the path launched it and
+    timed against it and the library call. Adds ``paths`` and the main-path
     entries of ``times`` to ``rows``."""
     import torch
     from icpflow_tpu_torch import SceneFlowEngine, run_frame_pair
@@ -930,7 +952,8 @@ def phase_launch_table(rows):
               lambda: run_stream("auto"))]
     for label, unit, units, run in paths:
         rec = _record_launches(run)
-        for name, groups in _replay(label, unit, units, rec, reps).items():
+        for name, groups in _replay(label, unit, units, rec, counted[label],
+                                    reps).items():
             rows[name].setdefault("paths", {})[label] = groups
         del rec
         torch.cuda.empty_cache()
@@ -938,12 +961,13 @@ def phase_launch_table(rows):
     for (name, n, m), (b, label, (s, d, mk, sm)) in reps.items():
         form, points = KERNELS[name][:2]
         err = _compare(form, points, s.cpu().numpy(), d.cpu().numpy(),
-                       mk.cpu().numpy())[0]
+                       mk.cpu().numpy(),
+                       None if sm is None else sm.cpu().numpy())[0]
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
         main_times.setdefault(name, []).append(_time_case(
             name, form, points, s, d, mk, f"main path ({label})", sm))
     for name, entries in main_times.items():
-        entries.sort(key=lambda e: -e["ms"])
+        entries.sort(key=lambda e: -e["bound_ms"])
         rows[name]["times"] = entries + rows[name]["times"]
 
 
@@ -1008,9 +1032,11 @@ def main():
         phase_profile(card)
         return 0
     rows = phase_kernels()
-    per_kernel = phase_main_path(card)
-    stream_kernel = phase_stream(card)
-    phase_launch_table(rows)
+    per_kernel, pair_shapes = phase_main_path(card)
+    stream_kernel, stream_shapes = phase_stream(card)
+    phase_launch_table(rows, {"pair": pair_shapes,
+                              "stream vpu2": stream_shapes["vpu2"],
+                              "stream default": stream_shapes["auto"]})
     table = []
     for name, (form, _, rep, _) in KERNELS.items():
         # launches: the frame-pair path's count; the sentinel kernels run
@@ -1019,7 +1045,8 @@ def main():
         check(path.get(name, 0) > 0,
               f"kernel {name} was not launched by its main path")
         # the row's own numbers are those of its first entry in ``times``:
-        # the largest launch the main paths made of it
+        # the launch with the most work (the largest bound) that the main
+        # paths made of it
         table.append(dict(name=name, route="cuda", source=SOURCE,
                           replaces=rep, launches=path[name],
                           **rows[name]["times"][0], **rows[name]))

@@ -31,14 +31,17 @@
 // idx 0, dist 1e15 and the point (0,0,0) in every form, and a block (or, with
 // dst split, every block) that holds only such points leaves at once.
 //
-// Bound. Each candidate is counted as 11 FP32 lane-operations (8 for the
-// distance in either form, a compare and 2 selects; 12 in the sentinel
-// form's points output, for its tie compare) and costs no device-memory
-// traffic: dst is
-// read once per block into shared memory, so bytes are O(B * (N + M * N /
-// points per block)), far below the O(B * N * M) operations. The kernel is
-// bound by the FP32 rate of the CUDA cores (33.5e12 lane-operations a second:
-// nothing here contracts into an FMA), counted on the pairs of a valid src
+// Bound. Each candidate is counted as 9 FP32 lane-operations: 8 for the
+// distance in either form and one to fold it into the running minimum (a
+// group of 8 candidates takes 7 fminf and one compare with `best`; the index
+// is resolved only when the group wins). The sentinel form's points output
+// is counted as 10: its tie rule asks of a candidate whether it equals the
+// minimum as well as whether it beats it. A candidate costs no device-memory
+// traffic: dst is read once per block into shared memory, so bytes are
+// O(B * (N + M * N / points per block)), far below the O(B * N * M)
+// operations. The kernel is bound by the FP32 rate of the CUDA cores (33.5e12
+// lane-operations a second: nothing here contracts into an FMA), counted on
+// the pairs of a valid src
 // and a valid dst: the masks the callers pass are prefixes of fixed-capacity
 // buffers, the odometry's map at 5-20% of 262,144 points and its source at
 // ~22% of 16,384, so a sweep over every slot does ~26 times the work its
@@ -73,11 +76,13 @@
 //   idx and dist. The wrapper allocates and fills the scratch; only the
 //   index output of the elementwise and sentinel forms can be split (the
 //   expanded form's d2 can be slightly negative).
-// * Several src points per thread (kR = 1, 2 or 4; a block covers kThreads *
-//   kR consecutive src points of one batch row): one shared-memory read
-//   feeds kR candidates. Every thread reads the same shared entry at the
-//   same time (a broadcast, no bank conflicts). The wrapper takes kR > 1
-//   only for grids that still fill the card; a small grid wants the warps.
+// * One src point per thread; a block covers kThreads consecutive src points
+//   of one batch row. Every thread reads the same shared entry at the same
+//   time (a broadcast, no bank conflicts). Two or four src points a thread
+//   (one shared-memory read feeding several candidates) were measured: they
+//   pay only on grids of at least 4 blocks a multiprocessor, which no path
+//   of the port launches (B <= 56 on its scenes), and lose on the small
+//   grids and the split sweep, which want the warps. They are not built.
 // * No chain through `best`. Taking candidates one by one makes every
 //   compare wait for the select before it, and on a small grid (one block a
 //   multiprocessor) that chain is the kernel's time. Candidates go in
@@ -172,7 +177,7 @@ __device__ __forceinline__ unsigned long long pack_key(float d2, int j) {
 // kSplit: the block sweeps only the chunks of its slice (blockIdx.z) and
 // merges into ``keys``, which the caller filled with pack_key(kBig, 0);
 // nn_finish_kernel writes the outputs.
-template <int kForm, bool kPoints, int kR, bool kSplit>
+template <int kForm, bool kPoints, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 masked_nn_kernel(const float* __restrict__ src, const float* __restrict__ dst,
                  const uint8_t* __restrict__ mask,
@@ -185,30 +190,19 @@ masked_nn_kernel(const float* __restrict__ src, const float* __restrict__ dst,
   __shared__ float4 ys[kChunk];      // (y0, y1, y2, |y|^2)
 
   const int b = blockIdx.y;
-  const int base = blockIdx.x * (kThreads * kR) + threadIdx.x;
-  float x0[kR], x1[kR], x2[kR], xsq[kR], best[kR];
-  int best_j[kR];
-  bool wanted[kR];                   // in range and not masked out
-  bool any_wanted = false;
-#pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    const int i = base + r * kThreads;
-    const bool in = i < n;
-    const size_t o = (size_t)b * n + (in ? i : 0);
-    wanted[r] = in && (src_mask == nullptr || src_mask[o]);
-    any_wanted |= wanted[r];
-    x0[r] = src[o * 3 + 0];
-    x1[r] = src[o * 3 + 1];
-    x2[r] = src[o * 3 + 2];
-    xsq[r] = dot3(x0[r], x1[r], x2[r], x0[r], x1[r], x2[r]);
-    best[r] = kBig;
-    best_j[r] = 0;
-  }
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const bool in = i < n;
+  const size_t o = (size_t)b * n + (in ? i : 0);
+  const bool wanted = in && (src_mask == nullptr || src_mask[o]);
+  const float x0 = src[o * 3 + 0], x1 = src[o * 3 + 1], x2 = src[o * 3 + 2];
+  const float xsq = dot3(x0, x1, x2, x0, x1, x2);
+  float best = kBig;
+  int best_j = 0;
   const float* d = dst + (size_t)b * m * 3;
   const uint8_t* mk = mask + (size_t)b * m;
 
   // a block with no wanted src point sweeps nothing
-  const bool sweep = __syncthreads_or(any_wanted);
+  const bool sweep = __syncthreads_or(wanted);
   const int chunks = sweep ? (m + kChunk - 1) / kChunk : 0;
   for (int c = kSplit ? blockIdx.z : 0; c < chunks;
        c += kSplit ? gridDim.z : 1) {
@@ -261,83 +255,73 @@ masked_nn_kernel(const float* __restrict__ src, const float* __restrict__ dst,
     // groups of kGroup candidates: their d2 are independent, a tree of
     // fminf gives the group's minimum, and only a group that can change
     // the result looks for the index of that minimum
+    // Two groups an iteration: the second group's shared-memory reads and
+    // distances overlap the first's fminf tree, which pays on the small
+    // grids (one block a multiprocessor) that the matcher launches.
     const int grouped = len - len % kGroup;
+#pragma unroll 2
     for (int t = 0; t < grouped; t += kGroup) {
       float4 y[kGroup];
 #pragma unroll
       for (int g = 0; g < kGroup; ++g) y[g] = ys[t + g];
+      float dd[kGroup];
 #pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        float dd[kGroup];
-#pragma unroll
-        for (int g = 0; g < kGroup; ++g) {
-          dd[g] = dist2<kForm>(x0[r], x1[r], x2[r], xsq[r], y[g]);
-        }
-        float lo[kGroup];
-#pragma unroll
-        for (int g = 0; g < kGroup; ++g) lo[g] = dd[g];
-#pragma unroll
-        for (int w = kGroup / 2; w >= 1; w /= 2) {
-#pragma unroll
-          for (int g = 0; g < w; ++g) lo[g] = fminf(lo[g], lo[g + w]);
-        }
-        // fminf passes over a NaN, which `<` never takes either
-        constexpr bool kTies = kForm == kSentinel && kPoints;
-        if (!(kTies ? lo[0] <= best[r] : lo[0] < best[r])) continue;
-        // the sweep in index order would leave the group's minimum at its
-        // first occurrence: under strict `<`, and under the points form's
-        // tie rule too, since j mod 8 grows with g inside an aligned group
-        int first = kGroup - 1;
-#pragma unroll
-        for (int g = kGroup - 2; g >= 0; --g) {
-          if (dd[g] == lo[0]) first = g;
-        }
-        if (kTies && lo[0] == best[r] &&
-            ((t + first) & 7) >= (best_j[r] & 7)) {
-          continue;                  // the carry keeps the lower j mod 8
-        }
-        best[r] = lo[0];
-        best_j[r] = j0 + t + first;
+      for (int g = 0; g < kGroup; ++g) {
+        dd[g] = dist2<kForm>(x0, x1, x2, xsq, y[g]);
       }
+      float lo[kGroup];
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g) lo[g] = dd[g];
+#pragma unroll
+      for (int w = kGroup / 2; w >= 1; w /= 2) {
+#pragma unroll
+        for (int g = 0; g < w; ++g) lo[g] = fminf(lo[g], lo[g + w]);
+      }
+      // fminf passes over a NaN, which `<` never takes either
+      constexpr bool kTies = kForm == kSentinel && kPoints;
+      if (!(kTies ? lo[0] <= best : lo[0] < best)) continue;
+      // the sweep in index order would leave the group's minimum at its
+      // first occurrence: under strict `<`, and under the points form's
+      // tie rule too, since j mod 8 grows with g inside an aligned group
+      int first = kGroup - 1;
+#pragma unroll
+      for (int g = kGroup - 2; g >= 0; --g) {
+        if (dd[g] == lo[0]) first = g;
+      }
+      if (kTies && lo[0] == best && ((t + first) & 7) >= (best_j & 7)) {
+        continue;                    // the carry keeps the lower j mod 8
+      }
+      best = lo[0];
+      best_j = j0 + t + first;
     }
     for (int t = grouped; t < len; ++t) {      // the ragged end of dst
-      const float4 y = ys[t];
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        consider<kForm, kPoints>(
-            dist2<kForm>(x0[r], x1[r], x2[r], xsq[r], y), t, j0, best[r],
-            best_j[r]);
-      }
+      consider<kForm, kPoints>(dist2<kForm>(x0, x1, x2, xsq, ys[t]), t, j0,
+                               best, best_j);
     }
   }
 
-#pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    const int i = base + r * kThreads;
-    if (i >= n) continue;
-    const size_t o = (size_t)b * n + i;
-    const bool found = wanted[r] && best[r] < kBig;
-    if (kSplit) {
-      if (found) atomicMin(&keys[o], pack_key(best[r], best_j[r]));
-      continue;
+  if (!in) return;
+  const bool found = wanted && best < kBig;
+  if (kSplit) {
+    if (found) atomicMin(&keys[o], pack_key(best, best_j));
+    return;
+  }
+  const int j = found ? best_j : 0;
+  dist_out[o] = sqrtf(fmaxf(found ? best : kBig, 0.0f));
+  if (kPoints) {
+    float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f;
+    if (found) {
+      const float* y = d + (size_t)j * 3;
+      const bool v = kForm != kSentinel || mk[j];
+      p0 = v ? y[0] : kSentinelCoord;
+      p1 = v ? y[1] : kSentinelCoord;
+      p2 = v ? y[2] : kSentinelCoord;
     }
-    const int j = found ? best_j[r] : 0;
-    dist_out[o] = sqrtf(fmaxf(found ? best[r] : kBig, 0.0f));
-    if (kPoints) {
-      float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f;
-      if (found) {
-        const float* y = d + (size_t)j * 3;
-        const bool v = kForm != kSentinel || mk[j];
-        p0 = v ? y[0] : kSentinelCoord;
-        p1 = v ? y[1] : kSentinelCoord;
-        p2 = v ? y[2] : kSentinelCoord;
-      }
-      pts_out[o * 3 + 0] = p0;
-      pts_out[o * 3 + 1] = p1;
-      pts_out[o * 3 + 2] = p2;
-    } else {
-      idx_out[o] = min(j, m - 1);
-    }
+    pts_out[o * 3 + 0] = p0;
+    pts_out[o * 3 + 1] = p1;
+    pts_out[o * 3 + 2] = p2;
+  } else {
+    idx_out[o] = min(j, m - 1);
   }
 }
 
@@ -367,18 +351,18 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int kForm, bool kPoints, int kR>
+template <int kForm, bool kPoints>
 cudaError_t launch(const Args& a) {
-  const dim3 grid((a.n + kThreads * kR - 1) / (kThreads * kR), a.b, a.slices);
+  const dim3 grid((a.n + kThreads - 1) / kThreads, a.b, a.slices);
   if (a.slices == 1) {
-    masked_nn_kernel<kForm, kPoints, kR, false><<<grid, kThreads, 0, a.stream>>>(
+    masked_nn_kernel<kForm, kPoints, false><<<grid, kThreads, 0, a.stream>>>(
         a.src, a.dst, a.mask, a.src_mask, a.n, a.m, a.idx, a.pts, a.dist,
         nullptr);
     return cudaGetLastError();
   }
   if constexpr (!kPoints && kForm != kExpanded) {
     if (a.keys == nullptr) return cudaErrorInvalidValue;
-    masked_nn_kernel<kForm, false, kR, true><<<grid, kThreads, 0, a.stream>>>(
+    masked_nn_kernel<kForm, false, true><<<grid, kThreads, 0, a.stream>>>(
         a.src, a.dst, a.mask, a.src_mask, a.n, a.m, nullptr, nullptr, nullptr,
         a.keys);
     cudaError_t err = cudaGetLastError();
@@ -391,19 +375,9 @@ cudaError_t launch(const Args& a) {
   return cudaErrorInvalidValue;      // this instantiation cannot be split
 }
 
-template <int kForm, bool kPoints>
-cudaError_t launch_r(const Args& a, int r) {
-  switch (r) {
-    case 1: return launch<kForm, kPoints, 1>(a);
-    case 2: return launch<kForm, kPoints, 2>(a);
-    case 4: return launch<kForm, kPoints, 4>(a);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 template <int kForm>
-cudaError_t launch_form(const Args& a, int points, int r) {
-  return points ? launch_r<kForm, true>(a, r) : launch_r<kForm, false>(a, r);
+cudaError_t launch_form(const Args& a, int points) {
+  return points ? launch<kForm, true>(a) : launch<kForm, false>(a);
 }
 
 }  // namespace
@@ -411,18 +385,17 @@ cudaError_t launch_form(const Args& a, int points, int r) {
 // Plain C entry point for ctypes. ``form`` is 0 (expanded), 1 (elementwise)
 // or 2 (sentinel). ``out`` is the (B,N) int32 index buffer when points == 0,
 // else the (B,N,3) float32 points buffer. ``src_mask`` is a (B,N) byte mask
-// or null (every src point wanted). ``r`` is the number of src points a
-// thread owns (1, 2 or 4). ``slices`` > 1 splits dst over that many blocks
-// (index output of the elementwise and sentinel forms only); ``keys`` is then
-// a (B,N) 64-bit buffer filled with the bits of 1e30f in the upper half and
-// 0 in the lower. Returns the cudaError_t of the launch (0 on success;
-// cudaErrorInvalidValue for an unknown form, r, or a split that the
+// or null (every src point wanted). ``slices`` > 1 splits dst over that
+// many blocks (index output of the elementwise and sentinel forms only);
+// ``keys`` is then a (B,N) 64-bit buffer filled with the bits of 1e30f in the
+// upper half and 0 in the lower. Returns the cudaError_t of the launch (0 on success;
+// cudaErrorInvalidValue for an unknown form or a split that the
 // instantiation does not have).
 extern "C" int icpflow_masked_nn(const void* src, const void* dst,
                                  const void* mask, const void* src_mask,
                                  int b, int n, int m, int form, int points,
-                                 int r, int slices, void* out, void* dist,
-                                 void* keys, void* stream) {
+                                 int slices, void* out, void* dist, void* keys,
+                                 void* stream) {
   if (slices < 1 || slices > 65535) return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.src = static_cast<const float*>(src);
@@ -439,9 +412,9 @@ extern "C" int icpflow_masked_nn(const void* src, const void* dst,
   a.keys = static_cast<unsigned long long*>(keys);
   a.stream = static_cast<cudaStream_t>(stream);
   switch (form) {
-    case kExpanded: return static_cast<int>(launch_form<kExpanded>(a, points, r));
-    case kElementwise: return static_cast<int>(launch_form<kElementwise>(a, points, r));
-    case kSentinel: return static_cast<int>(launch_form<kSentinel>(a, points, r));
+    case kExpanded: return static_cast<int>(launch_form<kExpanded>(a, points));
+    case kElementwise: return static_cast<int>(launch_form<kElementwise>(a, points));
+    case kSentinel: return static_cast<int>(launch_form<kSentinel>(a, points));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

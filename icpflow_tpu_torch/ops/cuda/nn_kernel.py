@@ -13,7 +13,7 @@ without CUDA.
 and read them after, to show the run went through the kernel.
 
 ``on_launch``, when set to a callable, is called as ``on_launch(name, src,
-dst, dst_mask, src_mask)`` just before each launch, so that a measuring
+dst, dst_mask, src_mask)`` after each launch, so that a measuring
 script can read the valid counts of a run's inputs. It is ``None`` by
 default and then costs one comparison a launch.
 
@@ -132,7 +132,7 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         fn = lib.icpflow_masked_nn
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p] * 4
         fn.restype = ctypes.c_int
         _lib = lib
@@ -149,12 +149,13 @@ def kernel_name(form: str, points: bool) -> str:
 
 
 def candidate_ops(form: str, points: bool) -> int:
-    """FP32 lane-operations one (src, dst) candidate costs: 8 for the
-    distance in any form, a compare and 2 selects; the sentinel form's
+    """FP32 lane-operations one (src, dst) candidate needs: 8 for the
+    distance in any form and one to fold it into the running minimum (the
+    index is resolved only where the minimum changes); the sentinel form's
     points output adds its tie compare (``csrc/nn_kernel.cu``)."""
     if form not in FORMS:
         raise ValueError(f"form must be one of {FORMS}, got {form!r}")
-    return 12 if form == "sentinel" and points else 11
+    return 10 if form == "sentinel" and points else 9
 
 
 def bound_ms(valid_pairs: float, form: str, points: bool) -> float:
@@ -177,36 +178,30 @@ def io_ms(b: int, n: int, m: int, points: bool, src_mask: bool = False) -> float
 
 @functools.lru_cache(maxsize=4096)
 def launch_plan(b: int, n: int, m: int, form: str, points: bool,
-                sms: int) -> tuple[int, int]:
-    """(src points per thread, dst slices) of one launch on a card with
-    ``sms`` multiprocessors.
+                sms: int) -> int:
+    """dst slices of one launch on a card with ``sms`` multiprocessors.
 
-    A block covers ``THREADS * r`` src points of one batch row. The widest
-    ``r`` (no wider than the row) that still leaves ``BLOCKS_PER_SM`` blocks
-    for each multiprocessor runs in one pass; a smaller grid takes ``r = 1``,
-    the most warps it can have. Only a long sweep by few blocks is split
-    (the odometry's: one batch row against a map of ``m > SPLIT_MIN_M``
-    slots): the index output of the elementwise and sentinel forms then
-    spreads dst over ``SPLIT_SLICES`` blocks (at most one per chunk). That
-    is far more blocks than one pass wants, because blocks of masked-out src
-    points and slices of padding leave at once, and what is left should
-    still fill the card. A split costs a scratch fill and a finish pass,
-    which a short sweep does not earn back."""
-    def blocks(r):
-        return b * -(-n // (THREADS * r))
-
-    for r in (4, 2, 1):
-        if (r == 1 or THREADS * r <= n) and blocks(r) >= BLOCKS_PER_SM * sms:
-            return r, 1
+    A block covers ``THREADS`` src points of one batch row. A grid of
+    ``BLOCKS_PER_SM`` blocks a multiprocessor runs in one pass, and so does
+    a short sweep. Only a long sweep by few blocks is split (the
+    odometry's: one batch row against a map of ``m > SPLIT_MIN_M`` slots):
+    the index output of the elementwise and sentinel forms then spreads dst
+    over ``SPLIT_SLICES`` blocks (at most one per chunk). That is far more
+    blocks than one pass wants, because blocks of masked-out src points and
+    slices of padding leave at once, and what is left should still fill the
+    card. A split costs a scratch fill and a finish pass, which a short
+    sweep does not earn back."""
+    if b * -(-n // THREADS) >= BLOCKS_PER_SM * sms:
+        return 1
     if points or form == "expanded" or m <= SPLIT_MIN_M:
-        return 1, 1
-    return 1, min(-(-m // CHUNK), SPLIT_SLICES)
+        return 1
+    return min(-(-m // CHUNK), SPLIT_SLICES)
 
 
 def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
                    dst_mask: torch.Tensor, *, form: str, points: bool,
                    src_mask: torch.Tensor | None = None,
-                   plan: tuple[int, int] | None = None
+                   slices: int | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel. Returns (idx (B,N) int32 | pts (B,N,3) f32,
     dist (B,N) f32).
@@ -215,9 +210,9 @@ def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
     dst (B,M,3) float32, dst_mask (B,M) bool and, where given, src_mask
     (B,N) bool, all contiguous on one CUDA device. Anything else raises
     ``ValueError``. A src point that ``src_mask`` marks False is not swept:
-    it gets idx 0, dist 1e15 and the point (0,0,0). ``plan`` overrides
-    :func:`launch_plan` (tests and tuning): (src points per thread in
-    1 | 2 | 4, dst slices >= 1); the result does not depend on it.
+    it gets idx 0, dist 1e15 and the point (0,0,0). ``slices`` >= 1
+    overrides :func:`launch_plan` (tests and tuning); the result does not
+    depend on it.
     """
     global launches
     if form not in FORMS:
@@ -261,10 +256,10 @@ def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
     if b == 0 or n == 0:
         return out, dist
     lib = load()
-    r, slices = plan if plan is not None else launch_plan(
-        b, n, m, form, points, _sm_count(src.device))
-    if r not in (1, 2, 4) or slices < 1:
-        raise ValueError(f"bad plan {(r, slices)}")
+    if slices is None:
+        slices = launch_plan(b, n, m, form, points, _sm_count(src.device))
+    if slices < 1:
+        raise ValueError(f"slices must be at least 1, got {slices}")
     if slices > 1 and (points or form == "expanded"):
         raise ValueError(f"{kernel_name(form, points)} cannot split dst")
     keys = None
@@ -272,14 +267,12 @@ def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
         keys = torch.full((b, n), _NONE_KEY, dtype=torch.int64,
                           device=src.device)
     name = kernel_name(form, points)
-    if on_launch is not None:
-        on_launch(name, src, dst, dst_mask, src_mask)
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
         err = lib.icpflow_masked_nn(
             src.data_ptr(), dst.data_ptr(), dst_mask.data_ptr(),
             None if src_mask is None else src_mask.data_ptr(), b, n, m,
-            FORMS.index(form), int(points), r, slices, out.data_ptr(),
+            FORMS.index(form), int(points), slices, out.data_ptr(),
             dist.data_ptr(), None if keys is None else keys.data_ptr(),
             stream)
     if err != 0:
@@ -287,4 +280,6 @@ def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
     launches += 1
     variant_launches[name] += 1
     shape_launches[(name, b, n, m)] += 1
+    if on_launch is not None:
+        on_launch(name, src, dst, dst_mask, src_mask)
     return out, dist

@@ -166,7 +166,7 @@ def masked_nn_plain(src: torch.Tensor, dst: torch.Tensor,
     return pts, dist
 
 
-def _sweep(src, dst, dst_mask, *, form, points, tile, src_mask):
+def _sweep(src, dst, dst_mask, *, form, points, tile, src_mask=None):
     if src.is_cuda:
         return _cuda.masked_nn_cuda(
             src.float().contiguous(), dst.float().contiguous(),
@@ -192,14 +192,12 @@ def masked_nn(src: torch.Tensor, dst: torch.Tensor, dst_mask: torch.Tensor,
 
 
 def masked_nn_points(src: torch.Tensor, dst: torch.Tensor,
-                     dst_mask: torch.Tensor, tile: int = 2048,
-                     src_mask: torch.Tensor | None = None):
+                     dst_mask: torch.Tensor, tile: int = 2048):
     """For each src point: coordinates (B,N,3) and distance (B,N) of the
     nearest valid dst (where none is valid: zeros and 1e15, or the sentinel
-    and its distance under the sentinel form). ``src_mask`` as in
-    :func:`masked_nn`: the other src points get zeros and 1e15."""
+    and its distance under the sentinel form)."""
     return _sweep(src, dst, dst_mask, form=sweep_form(dst.shape[1], False),
-                  points=True, tile=tile, src_mask=src_mask)
+                  points=True, tile=tile)
 
 
 def masked_nn_error(src: torch.Tensor, src_mask: torch.Tensor,
