@@ -13,8 +13,12 @@ Phases, one line each, any failure ends with a non-zero exit:
    duplicates, ragged M, N = 1, an equidistant tie; prefix masks of 0, 1,
    chunk - 1, chunk, chunk + 1 and all dst, a hole of more than two chunks,
    duplicates across a slice boundary, src masks with an all-invalid block,
-   one valid point, a prefix and nothing valid), one pass and 2, 3 and 5 dst
-   slices against the wrapper's own choice, bit for bit.
+   one valid point, a prefix and nothing valid; for the merge of a split
+   sweep: ties between ranks under each tie rule, a row whose valid dst lie
+   in one rank's chunks, M = S chunks and a point, negative expanded-form
+   d2), one pass and 2, 3 and 5 dst slices (index output) or clusters of 2,
+   4 and 8 blocks (points output) against the wrapper's own choice, bit for
+   bit.
    Kernel, plain version and the library call (``torch.cdist`` + ``min``,
    timed only) by CUDA events, beside the bound on the valid pairs;
 4. frame-pair path: ``run_frame_pair`` at the bench configuration on the
@@ -35,7 +39,9 @@ Phases, one line each, any failure ends with a non-zero exit:
    again alone: valid pairs, kernel milliseconds and bound per kernel and
    (N, M), a pair and a stream frame, ranked by the time lost against the
    bound; the largest launch of each is held against the plain version, src
-   mask included, and timed like the shapes of phase 3.
+   mask included, and timed like the shapes of phase 3; the points outputs
+   that a cluster can split are timed at every cluster size, and an empty
+   kernel (``launch_floor``) the same two ways.
 
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after; they show it went through the kernels and never through
@@ -264,7 +270,8 @@ def phase_build():
     print(f"[build] {path.name} from {SOURCE} in "
           f"{nn_kernel.build_seconds:.2f} s", flush=True)
     # ptxas -v: registers and spills of every instantiation
-    # masked_nn_kernel<form, points output, split>
+    # masked_nn_kernel<form, points output, mode> (mode 0: one pass, 1: dst
+    # split with an atomic merge, 2: dst split over a thread-block cluster)
     entries = re.findall(
         r"Compiling entry function '(\S+)' for 'sm_90a'.*?(\d+) bytes stack "
         r"frame, (\d+) bytes spill stores, (\d+) bytes spill loads.*?Used "
@@ -272,9 +279,10 @@ def phase_build():
     check(entries, "nvcc printed no ptxas -v lines")
     by_regs = {}
     for sym, stack, st, ld, regs in entries:
-        t = re.search(r"masked_nn_kernelILi(\d)ELb([01])ELb([01])E", sym)
-        tag = ("nn_finish_kernel" if t is None else
-               "<{},{},{}>".format(*t.groups()))
+        t = re.search(r"masked_nn_kernelILi(\d)ELb([01])ELi(\d)E", sym)
+        other = re.search(r"nn_finish_kernel|empty_kernel", sym)
+        check(t or other, f"ptxas -v names an unknown kernel {sym}")
+        tag = other.group(0) if t is None else "<{},{},{}>".format(*t.groups())
         by_regs.setdefault((int(regs), int(stack), int(st), int(ld)),
                            []).append(tag)
     for (regs, stack, st, ld), tags in sorted(by_regs.items()):
@@ -435,6 +443,47 @@ def _time_case(name, form, points, s, d, mk, fill, src_mask=None):
     return entry
 
 
+def _time_slices(name, form, points, s, d, mk, fill, src_mask=None):
+    """One input of a points output at every cluster size: eager and
+    graph-replayed milliseconds beside the bound, the least of two rounds
+    taken in turns (1, 2, 4, 8, 8, 4, 2, 1). Prints a ``[kernel]`` line a
+    size, marks the size ``launch_plan`` chooses, returns the rows."""
+    from icpflow_tpu_torch.ops.cuda import nn_kernel
+    shape = (s.shape[0], s.shape[1], d.shape[1])
+    chosen = nn_kernel.launch_plan(*shape, form, points,
+                                   nn_kernel._sm_count(s.device))
+    _, bound, _ = _bound(form, points, s, mk, src_mask)
+    sizes = list(nn_kernel.CLUSTER_SIZES)
+    best = {}
+    for slices in sizes + sizes[::-1]:
+        def kernel():
+            return nn_kernel.masked_nn_cuda(s, d, mk, form=form, points=points,
+                                            src_mask=src_mask, slices=slices)
+        ms, dev = _time_ms(kernel, iters=50), _device_ms(kernel, iters=50)
+        old = best.get(slices, (ms, dev))
+        best[slices] = (min(ms, old[0]), min(dev, old[1]))
+    rows = []
+    for slices in sizes:
+        ms, dev = best[slices]
+        rows.append(dict(slices=slices, chosen=slices == chosen, ms=ms,
+                         device_ms=dev, share_of_bound_device=bound / dev))
+        print(f"[kernel] {name} B,N,M={shape} {fill} S={slices}"
+              f"{' (chosen)' if slices == chosen else ''}: kernel {ms:.4f} ms "
+              f"(device {dev:.4f}) | bound {bound:.4f} ms share "
+              f"{bound / ms:.3f} (device {bound / dev:.3f})", flush=True)
+    return rows
+
+
+def _launch_floor():
+    """An empty kernel launched the two ways the sweeps are timed: what any
+    launch costs, to read the rows of tiny inputs against."""
+    from icpflow_tpu_torch.ops.cuda import nn_kernel
+    ms = _time_ms(nn_kernel.launch_floor, iters=200)
+    dev = _device_ms(nn_kernel.launch_floor, iters=200)
+    print(f"[kernel] launch_floor (an empty kernel, one thread): kernel "
+          f"{ms:.4f} ms (device {dev:.4f})", flush=True)
+
+
 def _explain(form, points, arrays, card, outs, src_mask=None, slices=None):
     """Why a kernel and its plain version disagree: the worst rows against
     a float64 reference on the host, and both sides run again on fresh
@@ -580,11 +629,31 @@ def _check_edges(name, form, points, k):
 
 def _slice_counts(form, points):
     """dst slices to hold against each other: None is the wrapper's own
-    choice; only the index output of the elementwise and sentinel forms can
-    split dst."""
-    if points or form == "expanded":
+    choice. The points output splits dst over a cluster of 2, 4 or 8 blocks,
+    the index output of the elementwise and sentinel forms over any number
+    of blocks, the expanded form's index output not at all."""
+    if points:
+        return [None, 1, 2, 4, 8]
+    if form == "expanded":
         return [None, 1]
     return [None, 1, 2, 3, 5]
+
+
+def _compare_slices(name, form, points, what, src, dst, mask, sm=None):
+    """One input at every slice count of ``_slice_counts``: each against the
+    plain version and, bit for bit, against the wrapper's own choice.
+    Returns the worst error and the kernel's outputs (out, dist)."""
+    import torch
+    worst, first = 0.0, None
+    for slices in _slice_counts(form, points):
+        err, out, _, _ = _compare(form, points, src, dst, mask, sm, slices)
+        worst = max(worst, err)
+        if first is None:
+            first = out
+        check(torch.equal(out[0], first[0]) and torch.equal(out[1], first[1]),
+              f"{name}: {what}: {slices} slices and the wrapper's own "
+              "choice give different bits")
+    return worst, first
 
 
 def _check_fills(name, form, points, k):
@@ -626,17 +695,9 @@ def _check_fills(name, form, points, k):
                   np.arange(9000)[None] < 2900, np.arange(300)[None] < 211))
     worst = 0.0
     for what, src, dst, mask, sm in cases:
-        first = None
-        for slices in _slice_counts(form, points):
-            err, (ko, kd), _, _ = _compare(form, points, src, dst, mask, sm,
-                                           slices)
-            worst = max(worst, err)
-            if first is None:
-                first = (ko, kd)
-            check(torch.equal(ko, first[0]) and torch.equal(kd, first[1]),
-                  f"{name}: {what}: {slices} slices and the wrapper's own "
-                  "choice give different bits")
-        ko, kd = first
+        err, (ko, kd) = _compare_slices(name, form, points, what, src, dst,
+                                        mask, sm)
+        worst = max(worst, err)
         if sm is not None:           # masked-out src: idx 0 / zeros, 1e15
             out = torch.as_tensor(~sm, device="cuda")
             check(bool((kd[out] == 1e15).all()) and bool((ko[out] == 0).all()),
@@ -644,6 +705,131 @@ def _check_fills(name, form, points, k):
         if what.startswith("duplicates") and not points:
             check(bool(((ko < CHUNK) | (ko >= 2 * CHUNK)).all()),
                   f"{name}: {what}: a higher duplicate won")
+    return worst
+
+
+TIES = ((2, 257, 513), (5, 261, 517))    # equidistant dst of src 0 and src 1
+ONE_RANK = (256, 512)                    # row 1: the only valid dst
+
+
+def _merge_inputs(m, seed):
+    """Three rows against ``m`` dst slots, for the merge of a split sweep.
+    Row 0, all dst valid: src 0 at the origin with three nearest dst at
+    distance 1, j = 2, 257 and 513 (j mod 8 = 2, 1, 1), and src 1 at
+    (50, 0, 0) with three at j = 5, 261 and 517 (j mod 8 = 5 each); every
+    other dst lies 5-15 m from the origin. A cluster's chunks are at most 256
+    points and an atomic split's 512, so each trio lies in chunks 0, 1 and 2
+    or in chunks 0, 0 and 1: other ranks, whatever the split. Row 1: only
+    dst 256-511 are valid (one chunk of either split). Row 2: no valid
+    dst."""
+    rng = np.random.default_rng(seed)
+    src = rng.uniform(-1.0, 1.0, (3, 40, 3))
+    src[0, 0] = 0.0
+    src[0, 1] = (50.0, 0.0, 0.0)
+    dst = rng.uniform(5.0, 15.0, (3, m, 3)) * rng.choice([-1.0, 1.0],
+                                                       (3, m, 3))
+    for i, trio in enumerate(TIES):
+        dst[0, trio] = src[0, i] + np.eye(3)
+    mask = np.ones((3, m), bool)
+    mask[1] = (np.arange(m) >= ONE_RANK[0]) & (np.arange(m) < ONE_RANK[1])
+    mask[2] = False
+    return src.astype(np.float32), dst.astype(np.float32), mask
+
+
+def _negative_d2_inputs(seed):
+    """Src points ~360 m from the origin, each with two near-copies in dst
+    (1e-4 m away, at j and j + one chunk): the expanded form's d2 to them is
+    rounding noise of either sign around 1e-8. Returns the inputs and the
+    number of src points whose least expanded-form d2 is negative, counted
+    with the kernel's sequence of fp32 operations in numpy."""
+    from icpflow_tpu_torch.ops.cuda.nn_kernel import CHUNK
+    rng = np.random.default_rng(seed)
+    n, m = 200, 3 * CHUNK + 1
+    src = (rng.uniform(-2.0, 2.0, (2, n, 3))
+           + [300.0, -200.0, 10.0]).astype(np.float32)
+    dst = (rng.uniform(-2.0, 2.0, (2, m, 3))
+           + [300.0, -200.0, 40.0]).astype(np.float32)
+    for off in (0, CHUNK):
+        dst[:, off:off + n] = src + rng.normal(
+            scale=1e-4, size=src.shape).astype(np.float32)
+    x = [src[:, :, None, k] for k in range(3)]
+    y = [dst[:, None, :, k] for k in range(3)]
+    dot = lambda a, c: (a[0] * c[0] + a[1] * c[1]) + a[2] * c[2]  # noqa: E731
+    d2 = (dot(x, x) - np.float32(2.0) * dot(x, y)) + dot(y, y)
+    assert d2.dtype == np.float32
+    return (src, dst, np.ones((2, m), bool)), int((d2.min(axis=2) < 0).sum())
+
+
+def _check_merge(name, form, points, k):
+    """The merge of a split sweep: ties between ranks under each tie rule,
+    a row whose valid dst lie in one rank's chunks, a row with none, M = one
+    point more than S chunks, a dst of one chunk (a cluster cuts it into S
+    parts), N = 1 and negative d2, at every slice count, with and without a
+    src mask, against the plain version and, bit for bit, against the
+    wrapper's own choice. Returns the worst error."""
+    import torch
+    from icpflow_tpu_torch.ops.cuda.nn_kernel import CHUNK
+    worst = 0.0
+
+    def sweep_all(what, src, dst, mask, sm=None):
+        nonlocal worst
+        err, out = _compare_slices(name, form, points, what, src, dst, mask,
+                                   sm)
+        worst = max(worst, err)
+        return out
+
+    carry = form == "sentinel" and points        # the (j mod 8) tie rule
+    for m in (CHUNK + 8, 2 * CHUNK + 1, 4 * CHUNK + 1, 8 * CHUNK + 1):
+        src, dst, mask = _merge_inputs(m, 700 + k)
+        keep = np.random.default_rng(710 + k).random(src.shape[:2]) < 0.5
+        keep[:, :2] = True                       # the tie rows stay wanted
+        for sm in (None, keep):
+            what = f"merge at M={m}{'' if sm is None else ' with src_mask'}"
+            ko, kd = sweep_all(what, src, dst, mask, sm)
+            for i, trio in enumerate(TIES):
+                # the lowest index, or the lowest (j mod 8, j div 8)
+                j = min(trio, key=lambda t: (t % 8, t // 8)) if carry \
+                    else min(trio)
+                check(float(kd[0, i]) == 1.0,
+                      f"{name}: {what}: tie dist {float(kd[0, i])}")
+                took = ko[0, i].cpu().numpy()
+                check(np.array_equal(took, dst[0, j]) if points
+                      else int(took) == j,
+                      f"{name}: {what}: tie {trio} took {took.tolist()}, not "
+                      f"j={j}")
+            rows = slice(None) if sm is None else torch.as_tensor(
+                sm[1], device="cuda")
+            lo, hi = ONE_RANK                    # row 1: one of its valid dst
+            if points:
+                valid = torch.as_tensor(dst[1, lo:hi], device="cuda")
+                hit = (ko[1][rows][:, None, :] == valid[None]).all(-1).any(-1)
+            else:
+                hit = (ko[1][rows] >= lo) & (ko[1][rows] < hi)
+            check(bool(hit.all()),
+                  f"{name}: {what}: a row left its one valid chunk")
+            rows = slice(None) if sm is None else torch.as_tensor(
+                sm[2], device="cuda")
+            kd2, ko2 = kd[2][rows], ko[2][rows]
+            if form == "sentinel":               # row 2: nothing valid
+                check(float(kd2.min()) > 1.7e6 and bool(
+                    (ko2 == (1e6 if points else 0)).all()),
+                    f"{name}: {what}: empty row")
+            else:
+                check(bool((kd2 == 1e15).all()) and bool((ko2 == 0).all()),
+                      f"{name}: {what}: empty row")
+    src, dst, mask = _inputs(4, 1, 8 * CHUNK + 1, 720 + k)
+    sweep_all("N = 1 against 8 chunks and a point", src, dst, mask)
+    # a dst of one chunk, which a cluster cuts into S parts: the j = 2 / j = 9
+    # tie (its winner is checked with the edge cases) and a 512-point bucket
+    sweep_all("the tie in a dst of 300", *_tie_inputs(740 + k))
+    sweep_all("a dst of one chunk", *_inputs(4, 300, CHUNK, 750 + k))
+    (src, dst, mask), negative = _negative_d2_inputs(730 + k)
+    check(negative > 0, "the negative-d2 case holds no negative d2")
+    _, kd = sweep_all("negative expanded-form d2", src, dst, mask)
+    if form == "expanded":                       # sqrt(max(d2, 0))
+        check(int((kd == 0).sum()) >= negative,
+              f"{name}: negative d2: {int((kd == 0).sum())} zero distances "
+              f"for {negative} negative minima")
     return worst
 
 
@@ -657,7 +843,8 @@ def phase_kernels():
         worst = 0.0
         for rep in range(EDGE_REPEATS):
             worst = max(worst, _check_edges(name, form, points, k + 1000 * rep),
-                        _check_fills(name, form, points, k + 1000 * rep))
+                        _check_fills(name, form, points, k + 1000 * rep),
+                        _check_merge(name, form, points, k + 1000 * rep))
         times = []
         for shape in shapes:
             src, dst, mask = _inputs(*shape, 200 + k)
@@ -697,7 +884,8 @@ def phase_main_path(card):
     import torch
     from icpflow_tpu_torch import SceneFlowEngine, run_frame_pair
     cfg = bench_config()
-    engine = SceneFlowEngine(cfg, device="cuda")
+    engine = SceneFlowEngine(cfg)          # the default device: the card
+    check(engine.device.type == "cuda", f"engine on {engine.device}")
     pairs = scene_pairs(cfg)
     _reset_counts()
     results = []
@@ -752,7 +940,9 @@ def _run_stream(cfg, scans):
     and, per frame, the stage milliseconds (CUDA events) and the total."""
     import torch
     from icpflow_tpu_torch import StreamingEngine
-    eng = StreamingEngine(cfg, estimate_ego=True, device="cuda")
+    eng = StreamingEngine(cfg, estimate_ego=True)     # default: the card
+    check(eng.device.type == "cuda" and eng.odo.device.type == "cuda",
+          f"stream engine on {eng.device}")
     outs, times = [], []
     for scan in scans:
         timings = {}
@@ -931,8 +1121,9 @@ def phase_launch_table(rows, counted):
     entries of ``times`` to ``rows``."""
     import torch
     from icpflow_tpu_torch import SceneFlowEngine, run_frame_pair
+    from icpflow_tpu_torch.ops.cuda import nn_kernel
     cfg = bench_config()
-    engine = SceneFlowEngine(cfg, device="cuda")
+    engine = SceneFlowEngine(cfg)
     pairs = scene_pairs(cfg)
     scans = stream_frames()[0]
     reps = {}
@@ -964,8 +1155,13 @@ def phase_launch_table(rows, counted):
                        mk.cpu().numpy(),
                        None if sm is None else sm.cpu().numpy())[0]
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
-        main_times.setdefault(name, []).append(_time_case(
-            name, form, points, s, d, mk, f"main path ({label})", sm))
+        entry = _time_case(name, form, points, s, d, mk,
+                           f"main path ({label})", sm)
+        if points:                  # a sweep that a cluster can split
+            entry["by_slices"] = _time_slices(
+                name, form, points, s, d, mk, f"main path ({label})", sm)
+        main_times.setdefault(name, []).append(entry)
+    _launch_floor()
     for name, entries in main_times.items():
         entries.sort(key=lambda e: -e["bound_ms"])
         rows[name]["times"] = entries + rows[name]["times"]
@@ -985,7 +1181,7 @@ def phase_profile(card, frame=3):
     _run_stream(cfg, scans[:2])
     for variant in ("vpu2", "auto"):
         with _nn_variant(variant):
-            eng = StreamingEngine(cfg, estimate_ego=True, device="cuda")
+            eng = StreamingEngine(cfg, estimate_ego=True)
             for scan in scans[:frame]:
                 eng.process(scan)
             torch.cuda.synchronize()
@@ -1003,14 +1199,21 @@ def phase_profile(card, frame=3):
             c, t = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (c + 1, t + e.time_range.elapsed_us() / 1e3)
         nn = {k: v for k, v in by_name.items() if "masked_nn_kernel" in k}
-        split = [v for k, v in nn.items() if ", true>" in k.replace("  ", " ")]
+
+        def mode(kernel):        # masked_nn_kernel<form, points, mode>
+            return re.search(r"masked_nn_kernel<.*?,\s*(\d)>", kernel).group(1)
+
+        split = [v for k, v in nn.items() if mode(k) == "1"]
+        cluster = [v for k, v in nn.items() if mode(k) == "2"]
         finish = by_name.get(next((k for k in by_name
                                    if "nn_finish_kernel" in k), ""), (0, 0.0))
         print(f"[profile {variant}] frame {frame}: wall {wall:.1f} ms | device "
               f"busy {busy:.1f} ms idle share {1 - busy / wall:.3f} | "
               f"{len(kern)} device activities | NN sweeps "
               f"{sum(c for c, _ in nn.values())} launches "
-              f"{sum(t for _, t in nn.values()):.3f} ms, of them the split "
+              f"{sum(t for _, t in nn.values()):.3f} ms, of them over a "
+              f"cluster {sum(c for c, _ in cluster)} launches "
+              f"{sum(t for _, t in cluster):.3f} ms and the split "
               f"exact sweep {sum(c for c, _ in split)} launches "
               f"{sum(t for _, t in split):.3f} ms, plus its finish pass "
               f"{finish[0]} launches {finish[1]:.3f} ms | {card}", flush=True)

@@ -28,8 +28,9 @@
 // skipped) has no counterpart: every dst point is swept.
 //
 // An optional src mask marks src points whose result nobody reads: they get
-// idx 0, dist 1e15 and the point (0,0,0) in every form, and a block (or, with
-// dst split, every block) that holds only such points leaves at once.
+// idx 0, dist 1e15 and the point (0,0,0) in every form and for either output,
+// and a block (or, with dst split, every block and every rank of a cluster)
+// that holds only such points leaves at once.
 //
 // Bound. Each candidate is counted as 9 FP32 lane-operations: 8 for the
 // distance in either form and one to fold it into the running minimum (a
@@ -58,10 +59,10 @@
 //   kStage points of a chunk: first their mask bytes, then, after a barrier
 //   that also takes the block-wide "any valid" (__syncthreads_or), their
 //   coordinates, as independent loads that cost one latency. A chunk with
-//   no valid dst is skipped after the mask; a split sweep never loads its
-//   coordinates (a one-pass sweep has started the loads beside the mask's,
-//   to pay one latency a chunk instead of two). The sentinel forms skip
-//   nothing: the sentinel stays a candidate.
+//   no valid dst is skipped after the mask; an atomic split sweep never
+//   loads its coordinates (a one-pass sweep and a cluster's have started the
+//   loads beside the mask's, to pay one latency a chunk instead of two).
+//   The sentinel forms skip nothing: the sentinel stays a candidate.
 // * Skip padding in src. A block whose src points are all masked out or out
 //   of range leaves before the sweep.
 // * Split dst across blocks when B * N alone gives too few of them (the
@@ -74,8 +75,55 @@
 //   order the blocks arrive in. The result is deterministic and equal to the
 //   one-pass sweep bit for bit. A small finish kernel turns the keys into
 //   idx and dist. The wrapper allocates and fills the scratch; only the
-//   index output of the elementwise and sentinel forms can be split (the
-//   expanded form's d2 can be slightly negative).
+//   index output of the elementwise and sentinel forms can be split this way
+//   (the expanded form's d2 can be slightly negative).
+// * Split dst over a thread-block cluster for the points output (the ICP
+//   loop's sweep: B <= 14 rows of 1024 src points against 4096 dst slots is
+//   56 blocks for 132 multiprocessors, and each thread walks all 4096
+//   candidates: the time is the length of one thread's sweep). The launch
+//   asks for clusters of S = 2, 4 or 8 blocks along the grid's z axis
+//   (cudaLaunchKernelEx, cudaLaunchAttributeClusterDimension): the S blocks
+//   of a cluster hold the same kThreads src points, run together on
+//   neighbouring multiprocessors and can read each other's shared memory.
+//   Rank z sweeps chunks z, z + S, ... as above. Then every thread leaves its
+//   (best, best_j) in its block's shared memory, the cluster synchronises,
+//   and rank 0 reads its partners' entries through distributed shared memory
+//   (map_shared_rank), keeps the lexicographic minimum of (d2, order(j)) and
+//   alone writes dist and gathers the point; a second cluster barrier keeps
+//   every block alive until its shared memory has been read. One launch, no
+//   scratch, no atomics, no finish pass, the same result whatever order the
+//   blocks run in, and the launch can be captured into a CUDA graph.
+//   (Writing into rank 0's shared memory instead, behind a barrier that
+//   every rank arrives at as it starts, measured no faster.) The wrapper
+//   gives a cluster's sweep shorter chunks than kChunk (a multiple of 8
+//   points): a dst of one chunk is cut into S parts, one a rank, and a
+//   longer dst into chunks of 256, because rank r of every cluster lands on
+//   the same multiprocessors: where only a prefix of dst is valid, short
+//   interleaved chunks keep every rank, and so every multiprocessor, at
+//   work.
+//   Why the merge leaves what the one-pass sweep in index order leaves, bit
+//   for bit. The d2 of a candidate does not depend on who computes it (the
+//   same separately rounded operations), and d2 is compared as a float, so
+//   the expanded form's slightly negative d2 is no obstacle.
+//   - expanded and elementwise forms, order(j) = j: the one-pass sweep takes
+//     a candidate only when it is strictly smaller, so it ends on the lowest
+//     index among the candidates of minimal d2 below 1e30. A rank ends on
+//     the lowest such index of its own chunks, or on (1e30, 0) where it found
+//     nothing; the minimum of (d2, j) over the ranks is the lowest index of
+//     the global minimum, and (1e30, 0) never beats a found candidate.
+//   - sentinel form, points output, order(j) = (j mod 8, j div 8): the
+//     one-pass sweep also takes an equal d2 with a lower j mod 8, and among
+//     equal d2 and equal j mod 8 keeps the earlier, so it ends on the minimum
+//     of (d2, j mod 8, j div 8). So does each rank over its chunks, and the
+//     minimum of minima under one total order is the minimum of the union.
+//     Here a higher index can win: j = 513 (j mod 8 = 1) beats j = 2.
+//   - a NaN is never taken by a rank (`<` and fminf pass over it) nor by the
+//     merge (`<` and `==` are false on it).
+//   All ranks of a cluster hold the same src points, so "no wanted src
+//   point" is the same decision in each: either all of them reach both
+//   cluster barriers or none does, and rank 0 writes the defaults. A rank
+//   whose chunks are all padding, or that has no chunk (S above the number
+//   of chunks), arrives with (1e30, 0).
 // * One src point per thread; a block covers kThreads consecutive src points
 //   of one batch row. Every thread reads the same shared entry at the same
 //   time (a broadcast, no bank conflicts). Two or four src points a thread
@@ -99,6 +147,7 @@
 // contraction), in the order the plain PyTorch version in ops/knn.py uses,
 // so the two agree bit for bit and ties resolve the same way.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -115,7 +164,13 @@ static_assert((kGroup & (kGroup - 1)) == 0 && kGroup <= 8 &&
 constexpr float kBig = 1e30f;        // "none found": no candidate reaches it
 constexpr float kSentinelCoord = 1e6f;
 
+constexpr int kMaxCluster = 8;       // the portable cluster size limit
+
 enum Form : int { kExpanded = 0, kElementwise = 1, kSentinel = 2 };
+// How dst is swept: by one block; split over blocks that merge by atomicMin
+// into a scratch buffer; or split over the blocks of one cluster that merge
+// through distributed shared memory.
+enum Mode : int { kOnePass = 0, kAtomic = 1, kCluster = 2 };
 
 // (a0*b0 + a1*b1) + a2*b2, every product and sum rounded on its own (no
 // FMA contraction): the plain PyTorch version computes the same sequence
@@ -155,6 +210,20 @@ __device__ __forceinline__ void consider(float d2, int t, int j0, float& best,
   }
 }
 
+// Whether (d2, j) comes before (best, best_j) in the order the sweep leaves
+// its result in: (d2, j), or (d2, j mod 8, j div 8) for the sentinel form's
+// points output. d2 is compared as a float (it may be negative or -0).
+template <int kForm, bool kPoints>
+__device__ __forceinline__ bool before(float d2, int j, float best,
+                                       int best_j) {
+  if (d2 < best) return true;
+  if (!(d2 == best)) return false;
+  if (kForm == kSentinel && kPoints && (j & 7) != (best_j & 7)) {
+    return (j & 7) < (best_j & 7);
+  }
+  return j < best_j;
+}
+
 // This thread's kStage points of a chunk of ``len`` dst points at ``y``.
 __device__ __forceinline__ void load_chunk(const float* __restrict__ y, int len,
                                            float (&y0)[kStage],
@@ -174,19 +243,26 @@ __device__ __forceinline__ unsigned long long pack_key(float d2, int j) {
   return ((unsigned long long)__float_as_uint(d2) << 32) | (unsigned)j;
 }
 
-// kSplit: the block sweeps only the chunks of its slice (blockIdx.z) and
-// merges into ``keys``, which the caller filled with pack_key(kBig, 0);
-// nn_finish_kernel writes the outputs.
-template <int kForm, bool kPoints, bool kSplit>
+// kMode != kOnePass: the block sweeps only the chunks of its slice
+// (blockIdx.z of gridDim.z). kAtomic merges into ``keys``, which the caller
+// filled with pack_key(kBig, 0), and nn_finish_kernel writes the outputs;
+// kCluster is launched with clusters of (1, 1, gridDim.z) blocks, whose rank
+// 0 merges and writes the outputs.
+template <int kForm, bool kPoints, int kMode>
 __global__ void __launch_bounds__(kThreads)
 masked_nn_kernel(const float* __restrict__ src, const float* __restrict__ dst,
                  const uint8_t* __restrict__ mask,
                  const uint8_t* __restrict__ src_mask, int n, int m,
-                 int32_t* __restrict__ idx_out, float* __restrict__ pts_out,
-                 float* __restrict__ dist_out,
+                 int cluster_span, int32_t* __restrict__ idx_out,
+                 float* __restrict__ pts_out, float* __restrict__ dist_out,
                  unsigned long long* __restrict__ keys) {
-  static_assert(!kSplit || (!kPoints && kForm != kExpanded),
-                "only the index output of a form with d2 >= +0 is split");
+  static_assert(kMode != kAtomic || (!kPoints && kForm != kExpanded),
+                "the atomic merge takes the index output of a form with "
+                "d2 >= +0 only");
+  constexpr bool kSplit = kMode != kOnePass;
+  // the coordinates of a chunk are loaded beside its mask (one latency a
+  // chunk) unless most chunks are expected to be padding
+  constexpr bool kLoadEarly = kMode != kAtomic;
   __shared__ float4 ys[kChunk];      // (y0, y1, y2, |y|^2)
 
   const int b = blockIdx.y;
@@ -203,11 +279,14 @@ masked_nn_kernel(const float* __restrict__ src, const float* __restrict__ dst,
 
   // a block with no wanted src point sweeps nothing
   const bool sweep = __syncthreads_or(wanted);
-  const int chunks = sweep ? (m + kChunk - 1) / kChunk : 0;
+  // dst points a chunk: a cluster may cut a dst of one chunk into shorter
+  // ones (a multiple of 8, so that t & 7 == j & 7 still holds), one a rank
+  const int span = kMode == kCluster ? cluster_span : kChunk;
+  const int chunks = sweep ? (m + span - 1) / span : 0;
   for (int c = kSplit ? blockIdx.z : 0; c < chunks;
        c += kSplit ? gridDim.z : 1) {
-    const int j0 = c * kChunk;
-    const int len = min(kChunk, m - j0);
+    const int j0 = c * span;
+    const int len = min(span, m - j0);
     // stage 1: the chunk's mask, kStage independent byte loads a thread
     uint8_t v[kStage];
     bool any_valid = false;
@@ -219,17 +298,18 @@ masked_nn_kernel(const float* __restrict__ src, const float* __restrict__ dst,
     }
     // stage 2: the coordinates, whatever the mask says: independent loads
     // that cost one latency. A one-pass sweep starts them before the
-    // barrier, beside the mask's; a split sweep, most of whose chunks are
-    // padding, after it, for the chunks that stay.
+    // barrier, beside the mask's, and so does a cluster's; an atomic split
+    // sweep, most of whose chunks are padding, after it, for the chunks
+    // that stay.
     float y0[kStage], y1[kStage], y2[kStage];
-    if (!kSplit) load_chunk(d + (size_t)j0 * 3, len, y0, y1, y2);
+    if (kLoadEarly) load_chunk(d + (size_t)j0 * 3, len, y0, y1, y2);
     // one barrier: the previous chunk is fully consumed, and "any valid"
     if (kForm == kSentinel) {
       __syncthreads();
     } else if (!__syncthreads_or(any_valid)) {
       continue;
     }
-    if (kSplit) load_chunk(d + (size_t)j0 * 3, len, y0, y1, y2);
+    if (!kLoadEarly) load_chunk(d + (size_t)j0 * 3, len, y0, y1, y2);
     // the mask is folded in: an invalid dst is the sentinel (a candidate
     // like any other) or lies at +inf (never taken)
 #pragma unroll
@@ -300,9 +380,43 @@ masked_nn_kernel(const float* __restrict__ src, const float* __restrict__ dst,
     }
   }
 
+  if constexpr (kMode == kCluster) {
+    // ``sweep`` is the same in every rank of a cluster (the same src
+    // points): all of them take both cluster barriers or none does
+    cooperative_groups::cluster_group cluster =
+        cooperative_groups::this_cluster();
+    const unsigned rank = cluster.block_rank();
+    if (sweep) {
+      __shared__ int2 mine[kThreads];          // (bits of best, best_j)
+      if (rank != 0) {
+        mine[threadIdx.x] = make_int2(__float_as_int(best), best_j);
+      }
+      cluster.sync();          // every rank's entries are written
+      if (rank == 0) {
+        const unsigned ranks = cluster.num_blocks();
+        int2 theirs[kMaxCluster - 1];
+#pragma unroll
+        for (unsigned r = 1; r < kMaxCluster; ++r) {   // independent loads
+          theirs[r - 1] = r < ranks
+                              ? cluster.map_shared_rank(mine, r)[threadIdx.x]
+                              : make_int2(__float_as_int(kBig), 0);
+        }
+#pragma unroll
+        for (unsigned r = 1; r < kMaxCluster; ++r) {   // (kBig, 0): never
+          const float d2 = __int_as_float(theirs[r - 1].x);
+          if (before<kForm, kPoints>(d2, theirs[r - 1].y, best, best_j)) {
+            best = d2;
+            best_j = theirs[r - 1].y;
+          }
+        }
+      }
+      cluster.sync();          // nobody leaves before its entries were read
+    }
+    if (rank != 0) return;
+  }
   if (!in) return;
   const bool found = wanted && best < kBig;
-  if (kSplit) {
+  if (kMode == kAtomic) {
     if (found) atomicMin(&keys[o], pack_key(best, best_j));
     return;
   }
@@ -325,7 +439,7 @@ masked_nn_kernel(const float* __restrict__ src, const float* __restrict__ dst,
   }
 }
 
-// The second pass of a split sweep: keys -> idx, dist. A key nobody lowered
+// The second pass of an atomic split sweep: keys -> idx, dist. A key nobody lowered
 // is pack_key(kBig, 0): idx 0, dist 1e15.
 __global__ void nn_finish_kernel(const unsigned long long* __restrict__ keys,
                                  int total, int m, int32_t* __restrict__ idx_out,
@@ -343,7 +457,7 @@ struct Args {
   const float* dst;
   const uint8_t* mask;
   const uint8_t* src_mask;
-  int b, n, m, slices;
+  int b, n, m, slices, span;
   int32_t* idx;
   float* pts;
   float* dist;
@@ -351,28 +465,55 @@ struct Args {
   cudaStream_t stream;
 };
 
+// An empty kernel: what any launch costs (see icpflow_launch_floor).
+__global__ void empty_kernel() {}
+
 template <int kForm, bool kPoints>
 cudaError_t launch(const Args& a) {
   const dim3 grid((a.n + kThreads - 1) / kThreads, a.b, a.slices);
   if (a.slices == 1) {
-    masked_nn_kernel<kForm, kPoints, false><<<grid, kThreads, 0, a.stream>>>(
-        a.src, a.dst, a.mask, a.src_mask, a.n, a.m, a.idx, a.pts, a.dist,
-        nullptr);
+    masked_nn_kernel<kForm, kPoints, kOnePass>
+        <<<grid, kThreads, 0, a.stream>>>(a.src, a.dst, a.mask, a.src_mask,
+                                          a.n, a.m, kChunk, a.idx, a.pts,
+                                          a.dist, nullptr);
     return cudaGetLastError();
   }
-  if constexpr (!kPoints && kForm != kExpanded) {
+  if constexpr (kPoints) {
+    // one cluster of ``slices`` blocks per kThreads src points of a row
+    if (a.slices > kMaxCluster || a.span < 8 || a.span > kChunk ||
+        a.span % 8 != 0) {
+      return cudaErrorInvalidValue;
+    }
+    cudaLaunchConfig_t config = {};
+    config.gridDim = grid;
+    config.blockDim = dim3(kThreads);
+    config.dynamicSmemBytes = 0;
+    config.stream = a.stream;
+    cudaLaunchAttribute attribute;
+    attribute.id = cudaLaunchAttributeClusterDimension;
+    attribute.val.clusterDim.x = 1;
+    attribute.val.clusterDim.y = 1;
+    attribute.val.clusterDim.z = a.slices;
+    config.attrs = &attribute;
+    config.numAttrs = 1;
+    return cudaLaunchKernelEx(
+        &config, masked_nn_kernel<kForm, true, kCluster>, a.src, a.dst, a.mask,
+        a.src_mask, a.n, a.m, a.span, static_cast<int32_t*>(nullptr), a.pts,
+        a.dist, static_cast<unsigned long long*>(nullptr));
+  } else if constexpr (kForm != kExpanded) {
     if (a.keys == nullptr) return cudaErrorInvalidValue;
-    masked_nn_kernel<kForm, false, true><<<grid, kThreads, 0, a.stream>>>(
-        a.src, a.dst, a.mask, a.src_mask, a.n, a.m, nullptr, nullptr, nullptr,
-        a.keys);
+    masked_nn_kernel<kForm, false, kAtomic><<<grid, kThreads, 0, a.stream>>>(
+        a.src, a.dst, a.mask, a.src_mask, a.n, a.m, kChunk, nullptr, nullptr,
+        nullptr, a.keys);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const int total = a.b * a.n;
     nn_finish_kernel<<<(total + 255) / 256, 256, 0, a.stream>>>(
         a.keys, total, a.m, a.idx, a.dist);
     return cudaGetLastError();
+  } else {
+    return cudaErrorInvalidValue;    // the expanded index output has no split
   }
-  return cudaErrorInvalidValue;      // this instantiation cannot be split
 }
 
 template <int kForm>
@@ -386,16 +527,19 @@ cudaError_t launch_form(const Args& a, int points) {
 // or 2 (sentinel). ``out`` is the (B,N) int32 index buffer when points == 0,
 // else the (B,N,3) float32 points buffer. ``src_mask`` is a (B,N) byte mask
 // or null (every src point wanted). ``slices`` > 1 splits dst over that
-// many blocks (index output of the elementwise and sentinel forms only);
-// ``keys`` is then a (B,N) 64-bit buffer filled with the bits of 1e30f in the
-// upper half and 0 in the lower. Returns the cudaError_t of the launch (0 on success;
-// cudaErrorInvalidValue for an unknown form or a split that the
-// instantiation does not have).
+// many blocks. The points output splits over a thread-block cluster of
+// ``slices`` <= 8 blocks in chunks of ``span`` dst points (a multiple of 8,
+// at most 512; read by this split only) and needs no ``keys``. The index
+// output of the elementwise and sentinel forms splits over any number of
+// blocks, and ``keys`` is then a (B,N) 64-bit buffer filled with the bits of
+// 1e30f in the upper half and 0 in the lower. Returns the cudaError_t of the
+// launch (0 on success; cudaErrorInvalidValue for an unknown form or a split
+// that the instantiation does not have).
 extern "C" int icpflow_masked_nn(const void* src, const void* dst,
                                  const void* mask, const void* src_mask,
                                  int b, int n, int m, int form, int points,
-                                 int slices, void* out, void* dist, void* keys,
-                                 void* stream) {
+                                 int slices, int span, void* out, void* dist,
+                                 void* keys, void* stream) {
   if (slices < 1 || slices > 65535) return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.src = static_cast<const float*>(src);
@@ -406,6 +550,7 @@ extern "C" int icpflow_masked_nn(const void* src, const void* dst,
   a.n = n;
   a.m = m;
   a.slices = slices;
+  a.span = span;
   a.idx = points ? nullptr : static_cast<int32_t*>(out);
   a.pts = points ? static_cast<float*>(out) : nullptr;
   a.dist = static_cast<float*>(dist);
@@ -417,4 +562,12 @@ extern "C" int icpflow_masked_nn(const void* src, const void* dst,
     case kSentinel: return static_cast<int>(launch_form<kSentinel>(a, points));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Launches an empty kernel of one thread on ``stream``: the least any launch
+// costs on this card, to read the sweeps of tiny inputs against. Returns the
+// cudaError_t of the launch.
+extern "C" int icpflow_launch_floor(void* stream) {
+  empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }

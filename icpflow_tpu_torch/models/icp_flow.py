@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..flow import flow_from_transforms, flow_with_identity_override
 from ..match.matcher import MatchResult, match_frame_pair
 from ..ops import cluster as _cluster
@@ -65,16 +66,15 @@ class _StageClock:
 class SceneFlowEngine:
     """End-to-end ICP-Flow pipeline on one torch device.
 
-    ``device="cuda"`` on a machine without a usable GPU raises; the engine
-    never moves work to the CPU on its own.
+    Runs on the GPU unless the caller passes another ``device`` ("cpu": the
+    plain PyTorch versions of the kernels). A CUDA device on a machine
+    without a usable GPU raises ``RuntimeError``; the engine never moves
+    work to the CPU on its own.
     """
 
-    def __init__(self, cfg: PipelineConfig, device="cpu"):
+    def __init__(self, cfg: PipelineConfig, device=DEFAULT_DEVICE):
         self.cfg = cfg
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {device!r} requested but "
-                               "torch.cuda.is_available() is False")
+        self.device = resolve_device(device)
 
     def _tensor(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(x).to(device=self.device, dtype=dtype)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
+from ..device import DEFAULT_DEVICE
 from ..ops.ego import EgoOdometry
 from ..ops.ground import segment_ground
 from .icp_flow import SceneFlowEngine, _StageClock
@@ -35,12 +36,13 @@ class StreamOutput(NamedTuple):
 class StreamingEngine:
     """Online scene flow over a scan stream on one torch device.
 
-    ``device="cuda"`` on a machine without a usable GPU raises, as
-    ``SceneFlowEngine`` does.
+    Runs on the GPU unless the caller passes another ``device``; a CUDA
+    device on a machine without a usable GPU raises, as ``SceneFlowEngine``
+    does.
     """
 
     def __init__(self, cfg: PipelineConfig, estimate_ego: bool = True,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
         self.cfg = cfg
         self.engine = SceneFlowEngine(cfg, device=device)
         self.device = self.engine.device

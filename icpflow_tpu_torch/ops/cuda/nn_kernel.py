@@ -17,6 +17,10 @@ dst, dst_mask, src_mask)`` after each launch, so that a measuring
 script can read the valid counts of a run's inputs. It is ``None`` by
 default and then costs one comparison a launch.
 
+:func:`launch_plan` chooses how a launch splits dst: not at all, over a
+thread-block cluster merged in shared memory (the points output), or over
+many blocks merged by ``atomicMin`` (a long index sweep by few blocks).
+
 :func:`bound_ms` and :func:`io_ms` give the least time the card could take
 for one launch: the kernel is bound by the FP32 rate of the CUDA cores,
 counted on the valid (src, dst) pairs; the bytes it must move are far
@@ -51,6 +55,9 @@ CHUNK = 512
 BLOCKS_PER_SM = 4        # blocks a multiprocessor should have to choose from
 SPLIT_MIN_M = 8192       # dst slots above which few blocks split their sweep
 SPLIT_SLICES = 64
+CLUSTER_SIZES = (1, 2, 4, 8)   # dst slices of a points output: one cluster
+CLUSTER_CHUNK = 256      # dst points a chunk of a cluster's sweep, at most
+CLUSTER_MIN_POINTS = 64  # dst points a rank of a cluster should have
 # the scratch of a split sweep starts at (1e30f, 0): float bits << 32 | index
 _NONE_KEY = int(struct.unpack("<I", struct.pack("<f", 1e30))[0]) << 32
 
@@ -132,9 +139,11 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         fn = lib.icpflow_masked_nn
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p] * 4
         fn.restype = ctypes.c_int
+        lib.icpflow_launch_floor.argtypes = [ctypes.c_void_p]
+        lib.icpflow_launch_floor.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -182,20 +191,49 @@ def launch_plan(b: int, n: int, m: int, form: str, points: bool,
     """dst slices of one launch on a card with ``sms`` multiprocessors.
 
     A block covers ``THREADS`` src points of one batch row. A grid of
-    ``BLOCKS_PER_SM`` blocks a multiprocessor runs in one pass, and so does
-    a short sweep. Only a long sweep by few blocks is split (the
+    ``BLOCKS_PER_SM`` blocks a multiprocessor runs in one pass.
+
+    The points output (the ICP loop's sweep: few rows of a cluster bucket)
+    splits dst over one thread-block cluster per ``THREADS`` src points,
+    merged through the cluster's shared memory inside the one launch: the
+    largest of :data:`CLUSTER_SIZES` that leaves every rank
+    ``CLUSTER_MIN_POINTS`` dst points (8 from 512 points on: the 512-point
+    buckets are cut into 64-point parts, which measured about half the
+    one-pass time, ``PERF.md``). :func:`cluster_span` gives the chunk
+    length.
+
+    The index output splits only a long sweep by few blocks (the
     odometry's: one batch row against a map of ``m > SPLIT_MIN_M`` slots):
-    the index output of the elementwise and sentinel forms then spreads dst
-    over ``SPLIT_SLICES`` blocks (at most one per chunk). That is far more
+    the elementwise and sentinel forms then spread dst over
+    ``SPLIT_SLICES`` blocks (at most one per chunk). That is far more
     blocks than one pass wants, because blocks of masked-out src points and
     slices of padding leave at once, and what is left should still fill the
-    card. A split costs a scratch fill and a finish pass, which a short
+    card. That split costs a scratch fill and a finish pass, which a short
     sweep does not earn back."""
     if b * -(-n // THREADS) >= BLOCKS_PER_SM * sms:
         return 1
-    if points or form == "expanded" or m <= SPLIT_MIN_M:
+    if points:
+        return max(s for s in CLUSTER_SIZES
+                   if s == 1 or s * CLUSTER_MIN_POINTS <= m)
+    if form == "expanded" or m <= SPLIT_MIN_M:
         return 1
     return min(-(-m // CHUNK), SPLIT_SLICES)
+
+
+def cluster_span(m: int, slices: int) -> int:
+    """dst points a chunk of a sweep that a cluster of ``slices`` blocks
+    splits (rank z takes chunks z, z + slices, ...): dst cut into ``slices``
+    parts of a multiple of 8 points (the sentinel form's tie rule reads
+    j mod 8 from the position in the chunk), and a part into chunks of at
+    most ``CLUSTER_CHUNK``. Chunks shorter than the one-pass sweep's spread
+    a valid prefix of dst over the ranks. Rank r of every cluster lands on
+    the same multiprocessors, so with 512-point chunks and half of a
+    4096-slot dst valid, four ranks of every cluster idle and half of the
+    card with them; 256-point chunks cost a few percent where all of dst is
+    valid and save a third there (``PERF.md``)."""
+    if slices == 1:
+        return CHUNK
+    return min(CLUSTER_CHUNK, -(-m // (8 * slices)) * 8)
 
 
 def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
@@ -212,7 +250,8 @@ def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
     ``ValueError``. A src point that ``src_mask`` marks False is not swept:
     it gets idx 0, dist 1e15 and the point (0,0,0). ``slices`` >= 1
     overrides :func:`launch_plan` (tests and tuning); the result does not
-    depend on it.
+    depend on it. The points output takes one of :data:`CLUSTER_SIZES`, the
+    expanded form's index output only 1; another value raises.
     """
     global launches
     if form not in FORMS:
@@ -260,10 +299,13 @@ def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
         slices = launch_plan(b, n, m, form, points, _sm_count(src.device))
     if slices < 1:
         raise ValueError(f"slices must be at least 1, got {slices}")
-    if slices > 1 and (points or form == "expanded"):
+    if points and slices not in CLUSTER_SIZES:
+        raise ValueError(f"{kernel_name(form, points)} splits dst over a "
+                         f"cluster of {CLUSTER_SIZES} blocks, not {slices}")
+    if slices > 1 and not points and form == "expanded":
         raise ValueError(f"{kernel_name(form, points)} cannot split dst")
     keys = None
-    if slices > 1:
+    if slices > 1 and not points:
         keys = torch.full((b, n), _NONE_KEY, dtype=torch.int64,
                           device=src.device)
     name = kernel_name(form, points)
@@ -272,9 +314,9 @@ def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
         err = lib.icpflow_masked_nn(
             src.data_ptr(), dst.data_ptr(), dst_mask.data_ptr(),
             None if src_mask is None else src_mask.data_ptr(), b, n, m,
-            FORMS.index(form), int(points), slices, out.data_ptr(),
-            dist.data_ptr(), None if keys is None else keys.data_ptr(),
-            stream)
+            FORMS.index(form), int(points), slices, cluster_span(m, slices),
+            out.data_ptr(), dist.data_ptr(),
+            None if keys is None else keys.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"masked_nn kernel launch failed: cudaError {err}")
     launches += 1
@@ -283,3 +325,12 @@ def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
     if on_launch is not None:
         on_launch(name, src, dst, dst_mask, src_mask)
     return out, dist
+
+
+def launch_floor() -> None:
+    """Launch the library's empty kernel on the current stream: what any
+    launch costs on this card. A measuring script times it beside the
+    sweeps; it is no kernel of the port's paths and is not counted."""
+    err = load().icpflow_launch_floor(torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: cudaError {err}")

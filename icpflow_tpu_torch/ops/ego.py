@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
+from ..device import DEFAULT_DEVICE, resolve_device
 from . import geometry as geo
 from . import knn as _knn
 
@@ -149,12 +150,13 @@ class EgoOdometry:
 
     ``register_frame(frame) -> pose`` appends to ``poses`` (host float32
     (4,4) arrays). The map (``_map`` (cap,3) f32, ``_map_valid`` (cap,)
-    bool) lives on ``device``.
+    bool) lives on ``device``: the GPU unless the caller names another; a
+    CUDA device on a machine without a usable GPU raises ``RuntimeError``.
     """
 
-    def __init__(self, cfg: PipelineConfig, device="cpu"):
+    def __init__(self, cfg: PipelineConfig, device=DEFAULT_DEVICE):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.poses: List[np.ndarray] = []
         cap = cfg.ego_map_capacity
         self._map = torch.zeros((cap, 3), dtype=torch.float32,
@@ -165,7 +167,7 @@ class EgoOdometry:
 
     @classmethod
     def from_arrays(cls, cfg: PipelineConfig, poses, map_pts, map_valid,
-                    deviations, device="cpu") -> "EgoOdometry":
+                    deviations, device=DEFAULT_DEVICE) -> "EgoOdometry":
         """An odometry that continues a sequence from host state, e.g. the
         JAX package's ``EgoOdometry`` (``poses``, ``_map``, ``_map_valid``,
         ``_deviations``) as numpy."""

@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
 from .geometry import scale_as_xla
 
 # CZM layout (patchworkpp.h:100-101): rings per zone x sectors per zone
@@ -69,7 +70,10 @@ class GroundState(NamedTuple):
     flat_stats: torch.Tensor  # (NUM_RINGS_OF_INTEREST, 3)
 
 
-def initial_ground_state(device="cpu") -> GroundState:
+def initial_ground_state(device=DEFAULT_DEVICE) -> GroundState:
+    """The state before the first frame, on the GPU unless the caller names
+    another ``device`` (a CUDA device without a usable GPU raises)."""
+    device = resolve_device(device)
     f32 = torch.float32
     r = NUM_RINGS_OF_INTEREST
     return GroundState(
@@ -81,9 +85,11 @@ def initial_ground_state(device="cpu") -> GroundState:
 
 
 def ground_state_from_arrays(elev_thr, flat_thr, elev_stats, flat_stats,
-                             device="cpu") -> GroundState:
+                             device=DEFAULT_DEVICE) -> GroundState:
     """A ``GroundState`` from host arrays, e.g. the four fields of the JAX
-    package's state as numpy (``np.asarray(field)``)."""
+    package's state as numpy (``np.asarray(field)``); on the GPU unless the
+    caller names another ``device``."""
+    device = resolve_device(device)
     return GroundState(*(torch.tensor(np.asarray(a), dtype=torch.float32,
                                       device=device)
                          for a in (elev_thr, flat_thr, elev_stats,
@@ -108,7 +114,7 @@ def _patch_index(xyz: torch.Tensor) -> torch.Tensor:
     return pid
 
 
-def _zone_of_patch(device="cpu") -> torch.Tensor:
+def _zone_of_patch(device) -> torch.Tensor:
     """(NUM_PATCHES,) zone index of each flat patch id."""
     out = []
     for z, (nr, ns) in enumerate(zip(ZONE_RINGS, ZONE_SECTORS)):
@@ -116,7 +122,7 @@ def _zone_of_patch(device="cpu") -> torch.Tensor:
     return torch.tensor(out, dtype=torch.int64, device=device)
 
 
-def _ring_of_patch(device="cpu") -> torch.Tensor:
+def _ring_of_patch(device) -> torch.Tensor:
     """(NUM_PATCHES,) concentric ring index (0..NUM_RINGS-1) per patch."""
     out = []
     ring0 = 0

@@ -57,8 +57,10 @@ def icp_core(src: torch.Tensor, src_mask: torch.Tensor, dst: torch.Tensor,
         s, sm = src[rows], src_mask[rows]
         moved = torch.einsum("bij,bnj->bni", R_cur[rows], s) \
             + t_cur[rows][:, None, :]
+        # only rows under ``sm`` are read below (``inlier``): the sweep
+        # skips the others, which changes no bit of the result
         nn_pts, dist = _knn.masked_nn_points(moved, dst[rows], dst_mask[rows],
-                                             tile=tile)
+                                             tile=tile, src_mask=sm)
         fine = it >= eff
         thr = thres if fine else thres * coarse_scale
         inlier = (dist <= thr) & sm

@@ -192,12 +192,15 @@ def masked_nn(src: torch.Tensor, dst: torch.Tensor, dst_mask: torch.Tensor,
 
 
 def masked_nn_points(src: torch.Tensor, dst: torch.Tensor,
-                     dst_mask: torch.Tensor, tile: int = 2048):
+                     dst_mask: torch.Tensor, tile: int = 2048,
+                     src_mask: torch.Tensor | None = None):
     """For each src point: coordinates (B,N,3) and distance (B,N) of the
     nearest valid dst (where none is valid: zeros and 1e15, or the sentinel
-    and its distance under the sentinel form)."""
+    and its distance under the sentinel form). ``src_mask`` (B,N), where
+    given, names the src points whose result is read: the others are not
+    swept and get zeros and 1e15 in every form."""
     return _sweep(src, dst, dst_mask, form=sweep_form(dst.shape[1], False),
-                  points=True, tile=tile)
+                  points=True, tile=tile, src_mask=src_mask)
 
 
 def masked_nn_error(src: torch.Tensor, src_mask: torch.Tensor,

@@ -141,7 +141,8 @@ def test_no_silent_fallbacks(monkeypatch):
     from icpflow_tpu_torch.ops import knn
     from icpflow_tpu_torch.ops.cuda import nn_kernel
     with pytest.raises(NotImplementedError, match="hdbscan"):
-        T.SceneFlowEngine(T.DEMO.replace(use_hdbscan=True)).run_pair(
+        T.SceneFlowEngine(T.DEMO.replace(use_hdbscan=True),
+                          device="cpu").run_pair(
             np.zeros((8, 3), np.float32), np.ones(8, bool),
             np.zeros((8, 3), np.float32), np.ones(8, bool), 2.0)
     # the kernel wrapper takes CUDA tensors only
@@ -172,3 +173,42 @@ def test_no_silent_fallbacks(monkeypatch):
         pytest.skip("a GPU is present: the no-GPU refusal cannot be shown")
     with pytest.raises(RuntimeError, match="cuda"):
         T.SceneFlowEngine(T.DEMO, device="cuda")
+
+
+def _entry_points():
+    from icpflow_tpu_torch.ops import ego, ground
+    cfg = T.DEMO.replace(ego_map_capacity=64)
+    state = [np.zeros(ground.NUM_RINGS_OF_INTEREST, np.float32)] * 2 \
+        + [np.zeros((ground.NUM_RINGS_OF_INTEREST, 3), np.float32)] * 2
+    return {
+        "SceneFlowEngine": (T.SceneFlowEngine, (cfg,)),
+        "StreamingEngine": (T.StreamingEngine, (cfg,)),
+        "EgoOdometry": (ego.EgoOdometry, (cfg,)),
+        "EgoOdometry.from_arrays": (
+            ego.EgoOdometry.from_arrays,
+            (cfg, [], np.zeros((64, 3), np.float32), np.zeros(64, bool), [])),
+        "initial_ground_state": (ground.initial_ground_state, ()),
+        "ground_state_from_arrays": (ground.ground_state_from_arrays, state),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_points_default_to_the_gpu_and_never_fall_back(name):
+    """Every engine and state constructor runs on the card unless the
+    caller asks for the CPU; without a usable GPU the default raises
+    instead of moving the work to the host."""
+    import inspect
+    import torch
+    fn, args = _entry_points()[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+    def where(made):                 # an engine, or a GroundState of tensors
+        return torch.device(made[0].device if isinstance(made, tuple)
+                            else made.device).type
+
+    assert where(fn(*args, device="cpu")) == "cpu"   # the CPU only when asked
+    if torch.cuda.is_available():
+        assert where(fn(*args)) == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        fn(*args)

@@ -121,7 +121,8 @@ def jax_sequence():
 
 def test_odometry_matches_jax(jax_sequence):
     scans, jposes, jfills, _ = jax_sequence
-    odo = te.EgoOdometry(config_from_dict(dataclasses.asdict(CFG)))
+    odo = te.EgoOdometry(config_from_dict(dataclasses.asdict(CFG)),
+                         device="cpu")
     for k, scan in enumerate(scans):
         pose = odo.register_frame(scan)
         assert pose.dtype == np.float32 and pose.shape == (4, 4)
@@ -136,7 +137,8 @@ def test_odometry_state_carried_across_from_jax(jax_sequence):
     the port the same third pose."""
     scans, jposes, jfills, (poses, mp, mv, devs) = jax_sequence
     odo = te.EgoOdometry.from_arrays(
-        config_from_dict(dataclasses.asdict(CFG)), poses, mp, mv, devs)
+        config_from_dict(dataclasses.asdict(CFG)), poses, mp, mv, devs,
+        device="cpu")
     assert odo._map.dtype == torch.float32
     assert odo._map_valid.dtype == torch.bool
     pose = odo.register_frame(scans[2])

@@ -94,7 +94,7 @@ def test_czm_ground_mask_stateful_matches_jax(name):
                                          jg.initial_ground_state())
     tm, ts = tg.czm_ground_mask_stateful(torch.as_tensor(pts),
                                          torch.as_tensor(valid),
-                                         tg.initial_ground_state())
+                                         tg.initial_ground_state("cpu"))
     assert _agree(jm, tm, valid) >= MIN_AGREE
     _assert_state_close(js, ts)
     stateless = tg.czm_ground_mask(torch.as_tensor(pts),
@@ -116,11 +116,11 @@ def test_segment_ground_matches_jax():
                                         jg.initial_ground_state(), **kw)
     tn, ts = tg.segment_ground_stateful(torch.as_tensor(pts),
                                         torch.as_tensor(valid),
-                                        tg.initial_ground_state(), **kw)
+                                        tg.initial_ground_state("cpu"), **kw)
     assert _agree(jn, tn, valid) >= MIN_AGREE
     _assert_state_close(js, ts)
     via_state = tg.segment_ground(torch.as_tensor(pts), torch.as_tensor(valid),
-                                  state=tg.initial_ground_state(), **kw)
+                                  state=tg.initial_ground_state("cpu"), **kw)
     assert torch.equal(via_state, tn)
 
 
@@ -132,7 +132,8 @@ def test_state_carried_across_from_jax_gives_the_same_second_frame():
     valid = np.ones(len(pts1), bool)
     _, js1 = jg.czm_ground_mask_stateful(jnp.asarray(pts1), jnp.asarray(valid),
                                          jg.initial_ground_state())
-    ts1 = tg.ground_state_from_arrays(*(np.asarray(a) for a in js1))
+    ts1 = tg.ground_state_from_arrays(*(np.asarray(a) for a in js1),
+                                      device="cpu")
     assert (ts1.elev_thr < -1.0).all()           # adapted near true ground
     jm2, js2 = jg.czm_ground_mask_stateful(jnp.asarray(pts2),
                                            jnp.asarray(valid), js1)

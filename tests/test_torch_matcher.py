@@ -216,7 +216,7 @@ def _robust_cases():
 @pytest.mark.parametrize("case", sorted(_robust_cases()))
 def test_port_is_finite_on_pathological_inputs(case):
     src, dst = _robust_cases()[case]
-    eng = T.SceneFlowEngine(_ROBUST)
+    eng = T.SceneFlowEngine(_ROBUST, device="cpu")
     res = T.run_frame_pair(eng, src.astype(np.float32),
                            dst.astype(np.float32), translation_frame=4.0)
     assert res.flow.shape == (len(src), 3)
@@ -230,7 +230,7 @@ def test_port_is_bitwise_deterministic():
     src = rng.uniform(-5, 5, (800, 3)).astype(np.float32)
     dst = (src + np.array([0.8, -0.2, 0.0], np.float32)
            + rng.normal(scale=0.01, size=src.shape).astype(np.float32))
-    eng = T.SceneFlowEngine(_ROBUST)
+    eng = T.SceneFlowEngine(_ROBUST, device="cpu")
     r1 = T.run_frame_pair(eng, src, dst, translation_frame=4.0)
     r2 = T.run_frame_pair(eng, src, dst, translation_frame=4.0)
     np.testing.assert_array_equal(r1.flow, r2.flow)

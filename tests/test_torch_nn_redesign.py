@@ -12,8 +12,12 @@ the plain version and on a numpy model of the split:
     (float32 bits of d2) << 32 | j equal the one-pass sweep, ties, empty
     slices and empty rows included;
 (c) ``src_mask``: masked-out src rows get idx 0 / zeros / 1e15, the others
-    are unchanged, and the odometry's ICP returns the same pose with it;
-(d) the bound and the launch plan against hand-computed values.
+    are unchanged, and the odometry's ICP and the matcher's ICP return the
+    same pose with it;
+(d) the bound and the launch plan against hand-computed values;
+(e) the points output's split over a thread-block cluster: per-rank nearest
+    neighbours merged by the lexicographic minimum of (d2, order(j)) equal
+    the one-pass sweep for every form and cluster size.
 
 Every comparison is exact (bit for bit) unless it says otherwise.
 """
@@ -23,6 +27,7 @@ import pytest
 import torch
 
 from icpflow_tpu_torch.ops import ego as tego
+from icpflow_tpu_torch.ops import icp as ticp
 from icpflow_tpu_torch.ops import knn as tknn
 from icpflow_tpu_torch.ops.cuda import nn_kernel
 
@@ -191,6 +196,82 @@ def test_src_mask_reaches_the_plain_version_through_the_api():
         assert (dist[~sm] == 1e15).all() and (idx[~sm] == 0).all()
 
 
+@pytest.mark.parametrize("variant,m", [("auto", 300), ("auto", 2100),
+                                       ("vpu2", 300)])
+def test_src_mask_on_the_points_sweep(variant, m, monkeypatch):
+    """``masked_nn_points(..., src_mask=)`` in the expanded, elementwise and
+    sentinel form: wanted rows as without a mask, the others (0,0,0) and
+    1e15."""
+    monkeypatch.setenv("ICPFLOW_NN_VARIANT", variant)
+    src, dst, rng = _cloud(24, m=m)
+    mask = _mask("holed", rng, *dst.shape[:2])
+    wanted = rng.random(src.shape[:2]) < 0.6
+    wanted[1, 40:] = False
+    t = [torch.as_tensor(a) for a in (src, dst, mask)]
+    base_p, base_d = tknn.masked_nn_points(*t)
+    none_p, none_d = tknn.masked_nn_points(*t, src_mask=None)
+    assert torch.equal(none_p, base_p) and torch.equal(none_d, base_d)
+    sm = torch.as_tensor(wanted)
+    pts, dist = tknn.masked_nn_points(*t, src_mask=sm)
+    assert torch.equal(pts[sm], base_p[sm]) and torch.equal(dist[sm],
+                                                            base_d[sm])
+    assert (dist[~sm] == 1e15).all() and (pts[~sm] == 0).all()
+    assert (base_d[~sm] < 1e15).all()           # they had a neighbour
+
+
+def _icp_pairs(seed=0, p=256):
+    """Four cluster pairs as the matcher hands them to ICP: (B,P,3) buffers
+    whose valid points are a prefix, junk in the padding."""
+    rng = np.random.default_rng(seed)
+    specs = [(100, [0.0, 0.0, 0.0]), (80, [0.05, 0.0, 0.0]),
+             (220, [0.06, 0.03, 0.0]), (60, [0.0, -0.04, 0.02])]
+    src = rng.uniform(-40.0, 40.0, (len(specs), p, 3)).astype(np.float32)
+    dst = rng.uniform(-40.0, 40.0, (len(specs), p, 3)).astype(np.float32)
+    sm = np.zeros((len(specs), p), bool)
+    dm = np.zeros((len(specs), p), bool)
+    for b, (n, shift) in enumerate(specs):
+        pts = rng.uniform(-1.0, 1.0, (n, 3)) * [1.0, 1.0, 0.5] + [3.0 * b, 0, 0]
+        src[b, :n] = pts
+        dst[b, :n] = pts + shift + rng.normal(scale=0.01, size=pts.shape)
+        sm[b, :n] = dm[b, :n] = True
+    return [torch.as_tensor(a) for a in (src, sm, dst, dm)]
+
+
+@pytest.mark.parametrize("entry", ["icp_core", "apply_icp"])
+@pytest.mark.parametrize("variant", ["mxu", "vpu", "vpu2"])
+def test_matcher_icp_same_pose_with_and_without_src_mask(variant, entry,
+                                                         monkeypatch):
+    """``icp_core`` passes its src validity to the sweep. It reads the
+    sweep's result only under that mask (inliers, Kabsch weights, rmse), so
+    the pose is the same bits as from a sweep over all rows, in every form."""
+    monkeypatch.setenv("ICPFLOW_NN_VARIANT", variant)
+    src, sm, dst, dm = _icp_pairs()
+
+    def run():
+        if entry == "icp_core":
+            return ticp.icp_core(src, sm, dst, dm, max_iters=12,
+                                 coarse_iters=2)
+        init = torch.eye(4).expand(len(src), 4, 4).clone()
+        init[:, 0, 3] = 0.05
+        return ticp.apply_icp(src, sm, dst, dm, init, max_iters=12)
+
+    with_mask = run()
+    seen = []
+    real = tknn.masked_nn_points
+
+    def no_src_mask(*a, src_mask=None, **kw):
+        seen.append(src_mask is not None)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(ticp._knn, "masked_nn_points", no_src_mask)
+    without = run()
+    assert seen and all(seen)                 # icp_core passed it
+    assert torch.equal(with_mask, without)
+    assert torch.isfinite(with_mask).all()
+    if entry == "icp_core":                   # it did align the pairs
+        assert abs(float(with_mask[2, 0, 3]) - 0.06) < 0.02
+
+
 def test_register_frame_icp_same_pose_with_and_without_src_mask(monkeypatch):
     """The odometry passes its source validity as ``src_mask``. The masked
     rows carry weight 0 in every step and in the score whatever their
@@ -270,14 +351,140 @@ def test_bound_ms_against_hand_computed_values():
 @pytest.mark.parametrize("shape,form,points,want", [
     ((1, 16384, 262144), "elementwise", False, 64),        # the odometry
     ((1, 300, 9000), "sentinel", False, 18),               # one slice a chunk
-    ((1, 16384, 262144), "elementwise", True, 1),          # points: no split
+    ((1, 16384, 262144), "elementwise", True, 8),          # points: a cluster
     ((1, 16384, 262144), "expanded", False, 1),            # d2 can be < 0
     ((7, 4096, 4096), "elementwise", False, 1),            # a short sweep
     ((1, 128, 8193), "elementwise", False, 17),            # just long enough
     ((1, 128, 8192), "elementwise", False, 1),
     ((8, 8448, 262144), "elementwise", False, 1),          # 528 blocks: full
     ((8, 8320, 262144), "sentinel", False, 64),            # 520 blocks: split
+    ((7, 1024, 4096), "elementwise", True, 8),             # the ICP sweep
+    ((7, 1024, 4096), "sentinel", True, 8),
+    ((66, 1024, 4096), "elementwise", True, 1),            # 528 blocks: full
+    ((65, 1024, 4096), "expanded", True, 8),               # 520 blocks
+    ((4, 512, 512), "expanded", True, 8),                  # 64 dst a rank
+    ((3, 200, 300), "sentinel", True, 4),
+    ((1, 128, 128), "elementwise", True, 2),
+    ((1, 128, 127), "elementwise", True, 1),               # too short to cut
 ])
 def test_launch_plan(shape, form, points, want):
     assert nn_kernel.launch_plan(*shape, form, points, 132) == want
-    assert 1 <= want <= -(-shape[2] // nn_kernel.CHUNK)
+    m = shape[2]
+    if points:         # a cluster of at most 8 ranks, each with 64 dst or more
+        assert want in nn_kernel.CLUSTER_SIZES and want <= 8
+        assert want == 1 or want * nn_kernel.CLUSTER_MIN_POINTS <= m
+        span = nn_kernel.cluster_span(m, want)
+        assert span % 8 == 0 and 8 <= span <= nn_kernel.CHUNK
+        if want > 1:   # every rank has a chunk, and a chunk is at most 256
+            assert span <= nn_kernel.CLUSTER_CHUNK
+            assert -(-m // span) >= want
+    else:
+        assert 1 <= want <= -(-m // nn_kernel.CHUNK)
+
+
+@pytest.mark.parametrize("m,slices,want", [
+    (4096, 8, 256), (4096, 4, 256), (4096, 1, 512), (512, 8, 64),
+    (512, 2, 256), (300, 4, 80), (1025, 8, 136), (9, 8, 8), (77, 1, 512)])
+def test_cluster_span(m, slices, want):
+    assert nn_kernel.cluster_span(m, slices) == want
+
+
+# -- (e) the cluster split and its merge --------------------------------------
+_TIES = ((2, 257, 513), (5, 261, 517))    # three equidistant dst, other chunks
+
+
+def _cluster_inputs(m, seed):
+    """Row 0: src 0 and src 1 with three nearest dst each at distance 1, in
+    three chunks of any split (j mod 8 = 2, 1, 1 and 5, 5, 5). Row 1: only
+    dst 256-511 valid (one rank's chunk). Row 2: no valid dst. Row 3: src
+    ~360 m from the origin with two near-copies each in dst, one chunk
+    apart, so that the expanded form's d2 is noise of either sign."""
+    rng = np.random.default_rng(seed)
+    n = 40
+    src = rng.uniform(-1.0, 1.0, (4, n, 3))
+    src[0, 0] = 0.0
+    src[0, 1] = (50.0, 0.0, 0.0)
+    dst = rng.uniform(5.0, 15.0, (4, m, 3)) * rng.choice([-1.0, 1.0],
+                                                       (4, m, 3))
+    for i, trio in enumerate(_TIES):
+        dst[0, trio] = src[0, i] + np.eye(3)
+    src[3] = rng.uniform(-2.0, 2.0, (n, 3)) + [300.0, -200.0, 10.0]
+    for off in (8, 264):
+        dst[3, off:off + n] = src[3] + rng.normal(scale=1e-4, size=(n, 3))
+    mask = np.ones((4, m), bool)
+    mask[1] = (np.arange(m) >= 256) & (np.arange(m) < 512)
+    mask[2] = False
+    return src.astype(np.float32), dst.astype(np.float32), mask
+
+
+def _cluster_model(src, dst, mask, form, slices, span):
+    """The cluster split of the points output in plain PyTorch. Rank z
+    sweeps chunks z, z + S, ... of ``span`` dst points in index order from
+    (1e30, 0), which leaves the minimum of (d2, order(j)) over its chunks;
+    rank 0 merges the ranks by the same order. d2 comes from the plain
+    version's own arithmetic. Returns (pts, dist, j)."""
+    s, d, mk = (torch.as_tensor(a) for a in (src, dst, mask))
+    b, n, m = s.shape[0], s.shape[1], d.shape[1]
+    sentinel = form == "sentinel"
+    if sentinel:
+        d = torch.where(mk[:, :, None], d, torch.full_like(d, 1e6))
+    x = [s[:, :, None, k] for k in range(3)]
+    y = [d[:, None, :, k] for k in range(3)]
+    d2 = tknn._tile_d2(x, y, tknn._dot3(x, x), form)
+    if not sentinel:
+        d2 = torch.where(mk[:, None, :], d2, torch.full_like(d2, np.inf))
+    j = torch.arange(m)
+    order = (j % 8) * (m // 8 + 1) + j // 8 if sentinel else j
+    big = torch.tensor(1e30)
+    best = big.expand(b, n).clone()
+    best_j = torch.zeros((b, n), dtype=torch.int64)
+    for z in range(slices):
+        cols = torch.cat([j[j0:j0 + span]
+                          for j0 in range(z * span, m, slices * span)]
+                         + [j[:0]])
+        rd, rj = big.expand(b, n).clone(), torch.zeros_like(best_j)
+        if len(cols):
+            sub = d2[:, :, cols]
+            low = sub.min(dim=2).values
+            key = torch.where(sub == low[:, :, None], order[cols],
+                              torch.full_like(cols, 8 * m + 8))
+            pick = cols[key.argmin(dim=2)]
+            found = low < big                    # strict: 1e30 is "none"
+            rd = torch.where(found, low, rd)
+            rj = torch.where(found, pick, rj)
+        take = (rd < best) | ((rd == best) & (order[rj] < order[best_j]))
+        best = torch.where(take, rd, best)
+        best_j = torch.where(take, rj, best_j)
+    found = best < big
+    dist = torch.sqrt(torch.clamp(torch.where(found, best, big), min=0.0))
+    pts = torch.gather(d, 1, best_j[:, :, None].expand(b, n, 3))
+    pts = torch.where(found[:, :, None], pts, torch.zeros_like(pts))
+    return pts, dist, best_j
+
+
+@pytest.mark.parametrize("m", [520, 1025, 2049])
+@pytest.mark.parametrize("slices", [1, 2, 4, 8])
+@pytest.mark.parametrize("form", ["expanded", "elementwise", "sentinel"])
+def test_cluster_model_equals_one_pass(form, slices, m):
+    src, dst, mask = _cluster_inputs(m, 31)
+    span = nn_kernel.cluster_span(m, slices)
+    want_p, want_d = _plain(src, dst, mask, form=form, points=True)
+    pts, dist, j = _cluster_model(src, dst, mask, form, slices, span)
+    np.testing.assert_array_equal(dist.numpy().view(np.uint32),
+                                  want_d.view(np.uint32))
+    np.testing.assert_array_equal(pts.numpy(), want_p)
+    # the ties took the candidate each rule names, from another rank
+    carry = form == "sentinel"
+    for i, trio in enumerate(_TIES):
+        assert dist[0, i] == 1.0
+        assert int(j[0, i]) == (min(trio, key=lambda t: (t % 8, t // 8))
+                                if carry else min(trio))
+        if slices > 1:
+            assert len({(t // span) % slices for t in trio}) > 1
+    assert ((j[1] >= 256) & (j[1] < 512)).all()      # the one valid chunk
+    if carry:                                        # nothing valid
+        assert (dist[2] > 1.7e6).all() and (pts[2] == 1e6).all()
+    else:
+        assert (dist[2] == 1e15).all() and (pts[2] == 0).all()
+    if form == "expanded":      # negative d2 met the merge: sqrt(max(d2, 0))
+        assert (dist[3] == 0).any()

@@ -99,7 +99,7 @@ def test_stream_matches_jax(jax_outputs, variant, monkeypatch):
 def test_stream_pose_override_and_no_gpu_refusal():
     scans, _ = _stream()
     eng = T.StreamingEngine(T.config_from_dict(dataclasses.asdict(CFG)),
-                            estimate_ego=False)
+                            estimate_ego=False, device="cpu")
     assert eng.odo is None
     pose = np.eye(4, dtype=np.float32)
     assert eng.process(scans[0], pose=pose) is None
