@@ -16,9 +16,10 @@ Phases, one line each, any failure ends with a non-zero exit:
    one valid point, a prefix and nothing valid; for the merge of a split
    sweep: ties between ranks under each tie rule, a row whose valid dst lie
    in one rank's chunks, M = S chunks and a point, negative expanded-form
-   d2), one pass and 2, 3 and 5 dst slices (index output) or clusters of 2,
-   4 and 8 blocks (points output) against the wrapper's own choice, bit for
-   bit.
+   d2), one pass and clusters of 2, 4 and 8 blocks (either output; the
+   index output of the elementwise and sentinel forms also over 2, 3 and 5
+   dst slices merged by atomicMin) against the wrapper's own choice, bit
+   for bit. The nominal index rows are timed at every cluster size.
    Kernel, plain version and the library call (``torch.cdist`` + ``min``,
    timed only) by CUDA events, beside the bound on the valid pairs;
 4. frame-pair path: ``run_frame_pair`` at the bench configuration on the
@@ -38,10 +39,12 @@ Phases, one line each, any failure ends with a non-zero exit:
    inputs kept (the same launches, or the run fails), and each is launched
    again alone: valid pairs, kernel milliseconds and bound per kernel and
    (N, M), a pair and a stream frame, ranked by the time lost against the
-   bound; the largest launch of each is held against the plain version, src
-   mask included, and timed like the shapes of phase 3; the points outputs
-   that a cluster can split are timed at every cluster size, and an empty
-   kernel (``launch_floor``) the same two ways.
+   bound, with how each was launched (dst slices, split) and how many came
+   with a src mask: every index launch must; the largest launch of each is
+   held against the plain version, src mask included, and timed like the
+   shapes of phase 3; the sweeps that a cluster can split are timed at
+   every cluster size, and an empty kernel (``launch_floor``) the same two
+   ways.
 
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after; they show it went through the kernels and never through
@@ -283,6 +286,7 @@ def phase_build():
         other = re.search(r"nn_finish_kernel|empty_kernel", sym)
         check(t or other, f"ptxas -v names an unknown kernel {sym}")
         tag = other.group(0) if t is None else "<{},{},{}>".format(*t.groups())
+        check(int(st) == 0 and int(ld) == 0, f"{tag} spills registers")
         by_regs.setdefault((int(regs), int(stack), int(st), int(ld)),
                            []).append(tag)
     for (regs, stack, st, ld), tags in sorted(by_regs.items()):
@@ -443,11 +447,17 @@ def _time_case(name, form, points, s, d, mk, fill, src_mask=None):
     return entry
 
 
+def _plan_tag(slices, split):
+    """A launch's (dst slices, split) in a few letters."""
+    return f"S={slices}" + (" atomic" if split == "atomic" else "")
+
+
 def _time_slices(name, form, points, s, d, mk, fill, src_mask=None):
-    """One input of a points output at every cluster size: eager and
-    graph-replayed milliseconds beside the bound, the least of two rounds
-    taken in turns (1, 2, 4, 8, 8, 4, 2, 1). Prints a ``[kernel]`` line a
-    size, marks the size ``launch_plan`` chooses, returns the rows."""
+    """One input of a sweep that a cluster can split, at every cluster
+    size: eager and graph-replayed milliseconds beside the bound, the least
+    of two rounds taken in turns (1, 2, 4, 8, 8, 4, 2, 1). Prints a
+    ``[kernel]`` line a size, marks the size ``launch_plan`` chooses,
+    returns the rows."""
     from icpflow_tpu_torch.ops.cuda import nn_kernel
     shape = (s.shape[0], s.shape[1], d.shape[1])
     chosen = nn_kernel.launch_plan(*shape, form, points,
@@ -457,8 +467,9 @@ def _time_slices(name, form, points, s, d, mk, fill, src_mask=None):
     best = {}
     for slices in sizes + sizes[::-1]:
         def kernel():
-            return nn_kernel.masked_nn_cuda(s, d, mk, form=form, points=points,
-                                            src_mask=src_mask, slices=slices)
+            return nn_kernel.masked_nn_cuda(
+                s, d, mk, form=form, points=points, src_mask=src_mask,
+                slices=slices, split="cluster")
         ms, dev = _time_ms(kernel, iters=50), _device_ms(kernel, iters=50)
         old = best.get(slices, (ms, dev))
         best[slices] = (min(ms, old[0]), min(dev, old[1]))
@@ -484,7 +495,7 @@ def _launch_floor():
           f"{ms:.4f} ms (device {dev:.4f})", flush=True)
 
 
-def _explain(form, points, arrays, card, outs, src_mask=None, slices=None):
+def _explain(form, points, arrays, card, outs, src_mask=None, plan=None):
     """Why a kernel and its plain version disagree: the worst rows against
     a float64 reference on the host, and both sides run again on fresh
     card copies of the same inputs. Printed to stderr before the failure."""
@@ -495,8 +506,9 @@ def _explain(form, points, arrays, card, outs, src_mask=None, slices=None):
     (ko, kd), (po, pd) = outs
     gap = (kd - pd).abs().cpu().numpy()
     lines = [f"[mismatch] {nn_kernel.kernel_name(form, points)} "
-             f"B,N,M={src.shape[0]},{src.shape[1]},{dst.shape[1]} slices {slices} "
-             f"src_mask {src_mask is not None}: "
+             f"B,N,M={src.shape[0]},{src.shape[1]},{dst.shape[1]} launched as "
+             f"{plan or 'the wrapper chooses'}, src_mask "
+             f"{src_mask is not None}: "
              f"{int((gap > 1e-5).sum())} dist entries differ, rows "
              f"{sorted(set(np.nonzero(gap > 1e-5)[0].tolist()))[:8]}; card "
              "inputs equal the host's: " + str(all(
@@ -516,7 +528,8 @@ def _explain(form, points, arrays, card, outs, src_mask=None, slices=None):
     fresh = [torch.as_tensor(a, device="cuda") for a in arrays]
     for tag, tensors in (("same tensors", card), ("fresh copies", fresh)):
         ko2, kd2 = nn_kernel.masked_nn_cuda(
-            *tensors, form=form, points=points, src_mask=src_mask, slices=slices)
+            *tensors, form=form, points=points, src_mask=src_mask,
+            **(plan or {}))
         po2, pd2 = knn.masked_nn_plain(*tensors, form=form, points=points,
                                        src_mask=src_mask)
         torch.cuda.synchronize()
@@ -535,30 +548,31 @@ def _explain(form, points, arrays, card, outs, src_mask=None, slices=None):
     print("\n".join(lines), file=sys.stderr, flush=True)
 
 
-def _compare(form, points, src, dst, mask, src_mask=None, slices=None):
+def _compare(form, points, src, dst, mask, src_mask=None, plan=None):
     """Kernel vs plain on the card. Returns the max abs dist/point error,
     the kernel's and the plain version's outputs, and the card tensors.
-    ``src_mask`` (numpy or None) goes to both; ``slices`` overrides the
-    number of dst slices the wrapper would take."""
+    ``src_mask`` (numpy or None) goes to both; ``plan`` (slices, split)
+    overrides how the wrapper would launch."""
     import torch
     from icpflow_tpu_torch.ops import knn
     from icpflow_tpu_torch.ops.cuda import nn_kernel
     s, d, mk = (torch.as_tensor(a, device="cuda") for a in (src, dst, mask))
     sm = None if src_mask is None else torch.as_tensor(src_mask, device="cuda")
     ko, kd = nn_kernel.masked_nn_cuda(s, d, mk, form=form, points=points,
-                                      src_mask=sm, slices=slices)
+                                      src_mask=sm, **(plan or {}))
     po, pd = knn.masked_nn_plain(s, d, mk, form=form, points=points,
                                  src_mask=sm)
     torch.cuda.synchronize()
     what = (f"{nn_kernel.kernel_name(form, points)} "
-            f"B,N,M={src.shape[0]},{src.shape[1]},{dst.shape[1]} slices {slices}"
+            f"B,N,M={src.shape[0]},{src.shape[1]},{dst.shape[1]} launched as "
+            f"{plan or 'the wrapper chooses'}"
             f"{'' if sm is None else ' with src_mask'}")
 
     def agree(cond, msg):
         if not cond:
             try:        # the report must not replace the failure below
                 _explain(form, points, (src, dst, mask), (s, d, mk),
-                         ((ko, kd), (po, pd)), sm, slices)
+                         ((ko, kd), (po, pd)), sm, plan)
             except Exception as e:
                 print(f"[mismatch] report failed: {e!r}", file=sys.stderr)
         check(cond, f"{what}: {msg}")
@@ -627,31 +641,32 @@ def _check_edges(name, form, points, k):
     return worst
 
 
-def _slice_counts(form, points):
-    """dst slices to hold against each other: None is the wrapper's own
-    choice. The points output splits dst over a cluster of 2, 4 or 8 blocks,
-    the index output of the elementwise and sentinel forms over any number
-    of blocks, the expanded form's index output not at all."""
-    if points:
-        return [None, 1, 2, 4, 8]
-    if form == "expanded":
-        return [None, 1]
-    return [None, 1, 2, 3, 5]
+def _plans(form, points):
+    """Launches to hold against each other: {} is the wrapper's own choice.
+    Either output of any form splits dst over a cluster of 2, 4 or 8
+    blocks; the index output of the elementwise and sentinel forms also
+    over any number of blocks by an atomic merge."""
+    from icpflow_tpu_torch.ops.cuda.nn_kernel import CLUSTER_SIZES
+    plans = [{}] + [dict(slices=size, split="cluster")
+                    for size in CLUSTER_SIZES]
+    if not points and form != "expanded":
+        plans += [dict(slices=count, split="atomic") for count in (2, 3, 5)]
+    return plans
 
 
 def _compare_slices(name, form, points, what, src, dst, mask, sm=None):
-    """One input at every slice count of ``_slice_counts``: each against the
-    plain version and, bit for bit, against the wrapper's own choice.
-    Returns the worst error and the kernel's outputs (out, dist)."""
+    """One input under every launch of ``_plans``: each against the plain
+    version and, bit for bit, against the wrapper's own choice. Returns the
+    worst error and the kernel's outputs (out, dist)."""
     import torch
     worst, first = 0.0, None
-    for slices in _slice_counts(form, points):
-        err, out, _, _ = _compare(form, points, src, dst, mask, sm, slices)
+    for plan in _plans(form, points):
+        err, out, _, _ = _compare(form, points, src, dst, mask, sm, plan)
         worst = max(worst, err)
         if first is None:
             first = out
         check(torch.equal(out[0], first[0]) and torch.equal(out[1], first[1]),
-              f"{name}: {what}: {slices} slices and the wrapper's own "
+              f"{name}: {what}: launched as {plan} and by the wrapper's own "
               "choice give different bits")
     return worst, first
 
@@ -852,6 +867,9 @@ def phase_kernels():
             worst = max(worst, err)
             times.append(_time_case(name, form, points, s, d, mk,
                                     "random 0.9 mask"))
+            if not points and shape != EXACT_SHAPE:
+                times[-1]["by_slices"] = _time_slices(
+                    name, form, points, s, d, mk, "random 0.9 mask")
             if shape == EXACT_SHAPE:     # every slot of both buffers valid
                 full = torch.ones_like(mk)
                 times.append(_time_case(
@@ -1030,13 +1048,14 @@ def phase_stream(card):
 
 def _record_launches(run):
     """Run ``run()`` with the inputs of every NN launch cloned on the card.
-    Returns [(kernel name, src, dst, dst_mask, src_mask | None), ...]."""
+    Returns [(kernel name, src, dst, dst_mask, src_mask | None, (dst
+    slices, split)), ...]."""
     from icpflow_tpu_torch.ops.cuda import nn_kernel
     rec = []
 
-    def keep(name, src, dst, dst_mask, src_mask):
+    def keep(name, src, dst, dst_mask, src_mask, plan):
         rec.append((name, src.clone(), dst.clone(), dst_mask.clone(),
-                    None if src_mask is None else src_mask.clone()))
+                    None if src_mask is None else src_mask.clone(), plan))
 
     nn_kernel.on_launch = keep
     try:
@@ -1056,13 +1075,19 @@ def _replay(label, unit, units, rec, counted, reps):
     own run, as ({(kernel, B, N, M): launches}, units of that run); the
     record must hold the same launches a unit, or the run fails. ``reps``
     keeps the largest launch of each (kernel, N, M) for the
-    kernel-vs-plain-vs-library timing."""
+    kernel-vs-plain-vs-library timing. Every index launch must have come
+    with a src mask (every caller reads its distances under one)."""
     from icpflow_tpu_torch.ops.cuda import nn_kernel
     per_shape, counted_units = counted
     recorded = {}
-    for name, s, d, _, _ in rec:
+    bare = set()
+    for name, s, d, _, sm, _ in rec:
         key = (name, s.shape[0], s.shape[1], d.shape[1])
         recorded[key] = recorded.get(key, 0) + 1
+        if sm is None and not KERNELS[name][1]:
+            bare.add(key)
+    check(not bare, f"{label}: index launches without a src mask: "
+          f"{sorted(bare)[:6]}")
     differ = sorted(k for k in set(recorded) | set(per_shape)
                     if recorded.get(k, 0) * counted_units
                     != per_shape.get(k, 0) * units)
@@ -1072,7 +1097,7 @@ def _replay(label, unit, units, rec, counted, reps):
               f"{k}: {recorded.get(k, 0)} vs {per_shape.get(k, 0)}"
               for k in differ[:6]))
     groups = {}
-    for name, s, d, mk, sm in rec:
+    for name, s, d, mk, sm, plan in rec:
         form, points = KERNELS[name][:2]
         kw = {} if sm is None else dict(src_mask=sm)
         ms = _time_ms(lambda: nn_kernel.masked_nn_cuda(
@@ -1081,7 +1106,11 @@ def _replay(label, unit, units, rec, counted, reps):
         b, n, m = s.shape[0], s.shape[1], d.shape[1]
         g = groups.setdefault((name, n, m), dict(
             n=n, m=m, b_min=b, b_max=b, launches=0, valid_pairs=0.0,
-            swept_pairs=0.0, kernel_ms=0.0, bound_ms=0.0, shapes={}))
+            swept_pairs=0.0, kernel_ms=0.0, bound_ms=0.0, shapes={},
+            plans=[], src_masked=0))
+        if _plan_tag(*plan) not in g["plans"]:
+            g["plans"].append(_plan_tag(*plan))
+        g["src_masked"] += sm is not None
         g["b_min"], g["b_max"] = min(g["b_min"], b), max(g["b_max"], b)
         g["valid_pairs"] += pairs
         g["swept_pairs"] += float(b) * n * m
@@ -1101,10 +1130,12 @@ def _replay(label, unit, units, rec, counted, reps):
         g["launches"] = sum(c for _, c in g["shapes"]) / counted_units
         g["lost_ms"] = g["kernel_ms"] - g["bound_ms"]
         out.setdefault(name, []).append(g)
+        g["src_masked"] /= units
         print(f"[launches {label}] {rank}. {name} N,M={n},{m} B "
               f"{g['b_min']}-{g['b_max']}: {g['launches']:.2f} launches a "
-              f"{unit} | valid pairs {g['valid_pairs']:.4g} of "
-              f"{g['swept_pairs']:.4g} swept | kernel {g['kernel_ms']:.4f} ms "
+              f"{unit} ({g['src_masked']:.2f} with a src mask) as "
+              f"{', '.join(sorted(g['plans']))} | valid pairs "
+              f"{g['valid_pairs']:.4g} of {g['swept_pairs']:.4g} swept | kernel {g['kernel_ms']:.4f} ms "
               f"bound {g['bound_ms']:.4f} ms lost {g['lost_ms']:.4f} ms a "
               f"{unit}", flush=True)
     return out
@@ -1157,7 +1188,7 @@ def phase_launch_table(rows, counted):
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
         entry = _time_case(name, form, points, s, d, mk,
                            f"main path ({label})", sm)
-        if points:                  # a sweep that a cluster can split
+        if nn_kernel.split_kind(form, points, m) == "cluster":
             entry["by_slices"] = _time_slices(
                 name, form, points, s, d, mk, f"main path ({label})", sm)
         main_times.setdefault(name, []).append(entry)
@@ -1201,7 +1232,8 @@ def phase_profile(card, frame=3):
         nn = {k: v for k, v in by_name.items() if "masked_nn_kernel" in k}
 
         def mode(kernel):        # masked_nn_kernel<form, points, mode>
-            return re.search(r"masked_nn_kernel<.*?,\s*(\d)>", kernel).group(1)
+            args = re.search(r"masked_nn_kernel<([^>]*)>", kernel).group(1)
+            return re.sub(r"\(\w+\)", "", args.split(",")[2]).strip()
 
         split = [v for k, v in nn.items() if mode(k) == "1"]
         cluster = [v for k, v in nn.items() if mode(k) == "2"]

@@ -64,7 +64,8 @@
 //   loads beside the mask's, to pay one latency a chunk instead of two).
 //   The sentinel forms skip nothing: the sentinel stays a candidate.
 // * Skip padding in src. A block whose src points are all masked out or out
-//   of range leaves before the sweep.
+//   of range leaves before the sweep. Every caller passes the mask it reads
+//   the result under, so a half-empty cluster bucket costs half the blocks.
 // * Split dst across blocks when B * N alone gives too few of them (the
 //   odometry's sweep has B = 1). The grid's z axis holds S slices; slice z
 //   takes chunks z, z + S, z + 2S, ... so that a valid prefix spreads evenly
@@ -76,21 +77,26 @@
 //   one-pass sweep bit for bit. A small finish kernel turns the keys into
 //   idx and dist. The wrapper allocates and fills the scratch; only the
 //   index output of the elementwise and sentinel forms can be split this way
-//   (the expanded form's d2 can be slightly negative).
-// * Split dst over a thread-block cluster for the points output (the ICP
-//   loop's sweep: B <= 14 rows of 1024 src points against 4096 dst slots is
-//   56 blocks for 132 multiprocessors, and each thread walks all 4096
-//   candidates: the time is the length of one thread's sweep). The launch
+//   (the expanded form's d2 can be slightly negative). It costs a scratch
+//   fill and a finish pass, which only a long sweep earns back (more than
+//   8,192 dst slots: the odometry's map).
+// * Split dst over a thread-block cluster everywhere else: either output of
+//   any form at the matcher's shapes (the ICP loop's sweep: B <= 14 rows of
+//   1024 src points against 4096 dst slots is 56 blocks for 132
+//   multiprocessors; its scoring sweeps: 7 rows of 4096 points are 224
+//   blocks, 8 rows of a 512-point bucket 32; each thread walks every
+//   candidate, so the time is the length of one thread's sweep). The launch
 //   asks for clusters of S = 2, 4 or 8 blocks along the grid's z axis
 //   (cudaLaunchKernelEx, cudaLaunchAttributeClusterDimension): the S blocks
-//   of a cluster hold the same kThreads src points, run together on
+//   of a cluster hold the same src points, run together on
 //   neighbouring multiprocessors and can read each other's shared memory.
 //   Rank z sweeps chunks z, z + S, ... as above. Then every thread leaves its
 //   (best, best_j) in its block's shared memory, the cluster synchronises,
 //   and rank 0 reads its partners' entries through distributed shared memory
 //   (map_shared_rank), keeps the lexicographic minimum of (d2, order(j)) and
-//   alone writes dist and gathers the point; a second cluster barrier keeps
-//   every block alive until its shared memory has been read. One launch, no
+//   alone writes dist and the index (clamped to m - 1) or gathers the point;
+//   a second cluster barrier keeps every block alive until its shared memory
+//   has been read. One launch, no
 //   scratch, no atomics, no finish pass, the same result whatever order the
 //   blocks run in, and the launch can be captured into a CUDA graph.
 //   (Writing into rank 0's shared memory instead, behind a barrier that
@@ -100,12 +106,18 @@
 //   longer dst into chunks of 256, because rank r of every cluster lands on
 //   the same multiprocessors: where only a prefix of dst is valid, short
 //   interleaved chunks keep every rank, and so every multiprocessor, at
-//   work.
+//   work. The wrapper takes the smallest S that gives the card 4 blocks a
+//   multiprocessor: a grid of clusters is placed less evenly than one of
+//   single blocks (896 blocks as clusters of 4 or 8 measured 12% slower than
+//   the same blocks launched without the cluster attribute and unmerged; 448
+//   blocks the same either way), which is part of what the larger sweeps
+//   stay short of their bound by.
 //   Why the merge leaves what the one-pass sweep in index order leaves, bit
 //   for bit. The d2 of a candidate does not depend on who computes it (the
 //   same separately rounded operations), and d2 is compared as a float, so
 //   the expanded form's slightly negative d2 is no obstacle.
-//   - expanded and elementwise forms, order(j) = j: the one-pass sweep takes
+//   - expanded and elementwise forms, and the sentinel form's index output,
+//     order(j) = j: the one-pass sweep takes
 //     a candidate only when it is strictly smaller, so it ends on the lowest
 //     index among the candidates of minimal d2 below 1e30. A rank ends on
 //     the lowest such index of its own chunks, or on (1e30, 0) where it found
@@ -127,10 +139,11 @@
 // * One src point per thread; a block covers kThreads consecutive src points
 //   of one batch row. Every thread reads the same shared entry at the same
 //   time (a broadcast, no bank conflicts). Two or four src points a thread
-//   (one shared-memory read feeding several candidates) were measured: they
-//   pay only on grids of at least 4 blocks a multiprocessor, which no path
-//   of the port launches (B <= 56 on its scenes), and lose on the small
-//   grids and the split sweep, which want the warps. They are not built.
+//   (one shared-memory read feeding several candidates) were measured twice,
+//   the second time on the grids a cluster split fills: they gain 3-5% on
+//   grids of 2,048 blocks and more, which no path of the port launches
+//   (B <= 56 on its scenes), and tie or lose at every shape a path does
+//   launch, which want the warps. They are not built.
 // * No chain through `best`. Taking candidates one by one makes every
 //   compare wait for the select before it, and on a small grid (one block a
 //   multiprocessor) that chain is the kernel's time. Candidates go in
@@ -457,7 +470,7 @@ struct Args {
   const float* dst;
   const uint8_t* mask;
   const uint8_t* src_mask;
-  int b, n, m, slices, span;
+  int b, n, m, points, mode, slices, span;
   int32_t* idx;
   float* pts;
   float* dist;
@@ -468,17 +481,10 @@ struct Args {
 // An empty kernel: what any launch costs (see icpflow_launch_floor).
 __global__ void empty_kernel() {}
 
-template <int kForm, bool kPoints>
-cudaError_t launch(const Args& a) {
+template <int kForm, bool kPoints, int kMode>
+cudaError_t launch_as(const Args& a) {
   const dim3 grid((a.n + kThreads - 1) / kThreads, a.b, a.slices);
-  if (a.slices == 1) {
-    masked_nn_kernel<kForm, kPoints, kOnePass>
-        <<<grid, kThreads, 0, a.stream>>>(a.src, a.dst, a.mask, a.src_mask,
-                                          a.n, a.m, kChunk, a.idx, a.pts,
-                                          a.dist, nullptr);
-    return cudaGetLastError();
-  }
-  if constexpr (kPoints) {
+  if constexpr (kMode == kCluster) {
     // one cluster of ``slices`` blocks per kThreads src points of a row
     if (a.slices > kMaxCluster || a.span < 8 || a.span > kChunk ||
         a.span % 8 != 0) {
@@ -497,28 +503,41 @@ cudaError_t launch(const Args& a) {
     config.attrs = &attribute;
     config.numAttrs = 1;
     return cudaLaunchKernelEx(
-        &config, masked_nn_kernel<kForm, true, kCluster>, a.src, a.dst, a.mask,
-        a.src_mask, a.n, a.m, a.span, static_cast<int32_t*>(nullptr), a.pts,
-        a.dist, static_cast<unsigned long long*>(nullptr));
-  } else if constexpr (kForm != kExpanded) {
-    if (a.keys == nullptr) return cudaErrorInvalidValue;
-    masked_nn_kernel<kForm, false, kAtomic><<<grid, kThreads, 0, a.stream>>>(
-        a.src, a.dst, a.mask, a.src_mask, a.n, a.m, kChunk, nullptr, nullptr,
-        nullptr, a.keys);
+        &config, masked_nn_kernel<kForm, kPoints, kCluster>, a.src, a.dst,
+        a.mask, a.src_mask, a.n, a.m, a.span, a.idx, a.pts, a.dist,
+        static_cast<unsigned long long*>(nullptr));
+  } else {
+    if (kMode == kAtomic && a.keys == nullptr) return cudaErrorInvalidValue;
+    masked_nn_kernel<kForm, kPoints, kMode><<<grid, kThreads, 0, a.stream>>>(
+        a.src, a.dst, a.mask, a.src_mask, a.n, a.m, kChunk, a.idx, a.pts,
+        a.dist, kMode == kAtomic ? a.keys : nullptr);
     cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+    if (kMode != kAtomic || err != cudaSuccess) return err;
     const int total = a.b * a.n;
     nn_finish_kernel<<<(total + 255) / 256, 256, 0, a.stream>>>(
         a.keys, total, a.m, a.idx, a.dist);
     return cudaGetLastError();
-  } else {
-    return cudaErrorInvalidValue;    // the expanded index output has no split
   }
 }
 
+// The instantiations a launch can reach: either output of any form in one
+// pass or over a cluster and, where d2 >= +0, the index output over an atomic
+// split.
+template <int kForm, bool kPoints>
+cudaError_t launch_output(const Args& a) {
+  if (a.mode == kOnePass) return launch_as<kForm, kPoints, kOnePass>(a);
+  if (a.mode == kCluster) return launch_as<kForm, kPoints, kCluster>(a);
+  // the expanded form's d2 can be negative: its bits do not order
+  if constexpr (!kPoints && kForm != kExpanded) {
+    return launch_as<kForm, false, kAtomic>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <int kForm>
-cudaError_t launch_form(const Args& a, int points) {
-  return points ? launch<kForm, true>(a) : launch<kForm, false>(a);
+cudaError_t launch_form(const Args& a) {
+  return a.points ? launch_output<kForm, true>(a)
+                  : launch_output<kForm, false>(a);
 }
 
 }  // namespace
@@ -526,21 +545,26 @@ cudaError_t launch_form(const Args& a, int points) {
 // Plain C entry point for ctypes. ``form`` is 0 (expanded), 1 (elementwise)
 // or 2 (sentinel). ``out`` is the (B,N) int32 index buffer when points == 0,
 // else the (B,N,3) float32 points buffer. ``src_mask`` is a (B,N) byte mask
-// or null (every src point wanted). ``slices`` > 1 splits dst over that
-// many blocks. The points output splits over a thread-block cluster of
-// ``slices`` <= 8 blocks in chunks of ``span`` dst points (a multiple of 8,
-// at most 512; read by this split only) and needs no ``keys``. The index
-// output of the elementwise and sentinel forms splits over any number of
-// blocks, and ``keys`` is then a (B,N) 64-bit buffer filled with the bits of
-// 1e30f in the upper half and 0 in the lower. Returns the cudaError_t of the
-// launch (0 on success; cudaErrorInvalidValue for an unknown form or a split
-// that the instantiation does not have).
+// or null (every src point wanted). ``split`` says how dst is swept: 0, by
+// one block (``slices`` == 1); 1, over ``slices`` > 1 blocks merged by
+// atomicMin, for the index output of the elementwise and sentinel forms
+// only, and ``keys`` is then a (B,N) 64-bit buffer filled with the bits of
+// 1e30f in the upper half and 0 in the lower; 2, over a thread-block cluster
+// of ``slices`` = 2..8 blocks in chunks of ``span`` dst points (a multiple of
+// 8, at most 512; read by this split only), for either output of any form,
+// with no ``keys``. Returns the cudaError_t of the launch (0 on success;
+// cudaErrorInvalidValue for an unknown form or a combination that has no
+// instantiation).
 extern "C" int icpflow_masked_nn(const void* src, const void* dst,
                                  const void* mask, const void* src_mask,
                                  int b, int n, int m, int form, int points,
-                                 int slices, int span, void* out, void* dist,
-                                 void* keys, void* stream) {
-  if (slices < 1 || slices > 65535) return static_cast<int>(cudaErrorInvalidValue);
+                                 int split, int slices, int span, void* out,
+                                 void* dist, void* keys, void* stream) {
+  const bool known = split == kOnePass || split == kAtomic || split == kCluster;
+  if (!known || slices < 1 || slices > 65535 ||
+      (split == kOnePass) != (slices == 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Args a;
   a.src = static_cast<const float*>(src);
   a.dst = static_cast<const float*>(dst);
@@ -549,6 +573,8 @@ extern "C" int icpflow_masked_nn(const void* src, const void* dst,
   a.b = b;
   a.n = n;
   a.m = m;
+  a.points = points;
+  a.mode = split;
   a.slices = slices;
   a.span = span;
   a.idx = points ? nullptr : static_cast<int32_t*>(out);
@@ -557,9 +583,9 @@ extern "C" int icpflow_masked_nn(const void* src, const void* dst,
   a.keys = static_cast<unsigned long long*>(keys);
   a.stream = static_cast<cudaStream_t>(stream);
   switch (form) {
-    case kExpanded: return static_cast<int>(launch_form<kExpanded>(a, points));
-    case kElementwise: return static_cast<int>(launch_form<kElementwise>(a, points));
-    case kSentinel: return static_cast<int>(launch_form<kSentinel>(a, points));
+    case kExpanded: return static_cast<int>(launch_form<kExpanded>(a));
+    case kElementwise: return static_cast<int>(launch_form<kElementwise>(a));
+    case kSentinel: return static_cast<int>(launch_form<kSentinel>(a));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -92,10 +92,14 @@ def match_eval(src_xyz, src_mask, dst_xyz, dst_mask, T, cfg: PipelineConfig,
     translation (B,3), rotation_deg (B,3))."""
     if moved is None:
         moved = geo.transform_points_batch(src_xyz, T)
+    # each distance is read only under the mask of the side it starts from
+    # (weights, inlier counts), so the sweeps skip the other rows
     if dist_f is None:
-        _, dist_f = _knn.masked_nn(moved, dst_xyz, dst_mask, tile=cfg.nn_tile)
+        _, dist_f = _knn.masked_nn(moved, dst_xyz, dst_mask, tile=cfg.nn_tile,
+                                   src_mask=src_mask)
     if dist_b is None:
-        _, dist_b = _knn.masked_nn(dst_xyz, moved, src_mask, tile=cfg.nn_tile)
+        _, dist_b = _knn.masked_nn(dst_xyz, moved, src_mask, tile=cfg.nn_tile,
+                                   src_mask=dst_mask)
     wf = src_mask.to(dist_f.dtype)
     wb = dst_mask.to(dist_b.dtype)
     n_src = torch.clamp(torch.sum(wf, 1), min=1e-9)
@@ -145,9 +149,13 @@ def _solve_bucket(seg_src: SegmentBatch, seg_dst: SegmentBatch,
     moved = dist_f = dist_b = None
     if cfg.identity_margin > 0 or cfg.per_point_identity:
         # NN distances under identity and under T, shared by the identity
-        # preference, the per-point refinement and the match statistics
-        _, d_id = _knn.masked_nn(s_xyz, d_xyz, d_mask, tile=cfg.nn_tile)
-        _, d_id_b = _knn.masked_nn(d_xyz, s_xyz, s_mask, tile=cfg.nn_tile)
+        # preference, the per-point refinement and the match statistics;
+        # read only under the mask of the side they start from, which the
+        # sweeps get as their src mask (a backward sweep's is ``d_mask``)
+        _, d_id = _knn.masked_nn(s_xyz, d_xyz, d_mask, tile=cfg.nn_tile,
+                                 src_mask=s_mask)
+        _, d_id_b = _knn.masked_nn(d_xyz, s_xyz, s_mask, tile=cfg.nn_tile,
+                                   src_mask=d_mask)
         wf = s_mask.to(d_id.dtype)
         wb = d_mask.to(d_id.dtype)
         n_s = torch.clamp(torch.sum(wf, 1), min=1e-9)
@@ -155,8 +163,10 @@ def _solve_bucket(seg_src: SegmentBatch, seg_dst: SegmentBatch,
         err_id = torch.minimum(torch.sum(d_id * wf, 1) / n_s,
                                torch.sum(d_id_b * wb, 1) / n_d)
         moved_T = geo.transform_points_batch(s_xyz, T)
-        _, d_T = _knn.masked_nn(moved_T, d_xyz, d_mask, tile=cfg.nn_tile)
-        _, d_T_b = _knn.masked_nn(d_xyz, moved_T, s_mask, tile=cfg.nn_tile)
+        _, d_T = _knn.masked_nn(moved_T, d_xyz, d_mask, tile=cfg.nn_tile,
+                                src_mask=s_mask)
+        _, d_T_b = _knn.masked_nn(d_xyz, moved_T, s_mask, tile=cfg.nn_tile,
+                                  src_mask=d_mask)
         err_T = torch.minimum(torch.sum(d_T * wf, 1) / n_s,
                               torch.sum(d_T_b * wb, 1) / n_d)
         if cfg.identity_margin > 0:

@@ -13,13 +13,15 @@ without CUDA.
 and read them after, to show the run went through the kernel.
 
 ``on_launch``, when set to a callable, is called as ``on_launch(name, src,
-dst, dst_mask, src_mask)`` after each launch, so that a measuring
-script can read the valid counts of a run's inputs. It is ``None`` by
-default and then costs one comparison a launch.
+dst, dst_mask, src_mask, plan)`` after each launch, ``plan`` being the
+launch's (dst slices, split), so that a measuring
+script can read the valid counts of a run's inputs and how each was
+launched. It is ``None`` by default and then costs one comparison a launch.
 
 :func:`launch_plan` chooses how a launch splits dst: not at all, over a
-thread-block cluster merged in shared memory (the points output), or over
-many blocks merged by ``atomicMin`` (a long index sweep by few blocks).
+thread-block cluster merged in shared memory (either output at the
+matcher's shapes), or over many blocks merged by ``atomicMin`` (a long
+index sweep by few blocks: :func:`split_kind`).
 
 :func:`bound_ms` and :func:`io_ms` give the least time the card could take
 for one launch: the kernel is bound by the FP32 rate of the CUDA cores,
@@ -55,7 +57,8 @@ CHUNK = 512
 BLOCKS_PER_SM = 4        # blocks a multiprocessor should have to choose from
 SPLIT_MIN_M = 8192       # dst slots above which few blocks split their sweep
 SPLIT_SLICES = 64
-CLUSTER_SIZES = (1, 2, 4, 8)   # dst slices of a points output: one cluster
+CLUSTER_SIZES = (1, 2, 4, 8)   # dst slices of a cluster split: one cluster
+SPLITS = ("none", "atomic", "cluster")     # the C entry's split codes
 CLUSTER_CHUNK = 256      # dst points a chunk of a cluster's sweep, at most
 CLUSTER_MIN_POINTS = 64  # dst points a rank of a cluster should have
 # the scratch of a split sweep starts at (1e30f, 0): float bits << 32 | index
@@ -70,7 +73,7 @@ HBM_BYTES_PER_S = 3.35e12
 launches = 0
 variant_launches: collections.Counter = collections.Counter()
 shape_launches: collections.Counter = collections.Counter()
-on_launch = None         # callable(name, src, dst, dst_mask, src_mask) | None
+on_launch = None         # callable(name, src, dst, dst_mask, src_mask, plan)
 build_seconds = None     # wall seconds of the last nvcc build (None: cached)
 build_log = ""           # what that build printed: ptxas -v, per kernel
 _lib = None
@@ -139,7 +142,7 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         fn = lib.icpflow_masked_nn
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p] * 4
         fn.restype = ctypes.c_int
         lib.icpflow_launch_floor.argtypes = [ctypes.c_void_p]
@@ -185,6 +188,17 @@ def io_ms(b: int, n: int, m: int, points: bool, src_mask: bool = False) -> float
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def split_kind(form: str, points: bool, m: int) -> str:
+    """How a launch that splits dst merges its slices: "atomic" (a scratch
+    buffer of packed keys, ``atomicMin``, a finish pass) for an index sweep
+    over more than ``SPLIT_MIN_M`` dst slots in a form whose d2 is never
+    negative, "cluster" (one thread-block cluster a block of src points,
+    merged through its shared memory inside the one launch) otherwise."""
+    if not points and form != "expanded" and m > SPLIT_MIN_M:
+        return "atomic"
+    return "cluster"
+
+
 @functools.lru_cache(maxsize=4096)
 def launch_plan(b: int, n: int, m: int, form: str, points: bool,
                 sms: int) -> int:
@@ -193,31 +207,50 @@ def launch_plan(b: int, n: int, m: int, form: str, points: bool,
     A block covers ``THREADS`` src points of one batch row. A grid of
     ``BLOCKS_PER_SM`` blocks a multiprocessor runs in one pass.
 
-    The points output (the ICP loop's sweep: few rows of a cluster bucket)
-    splits dst over one thread-block cluster per ``THREADS`` src points,
-    merged through the cluster's shared memory inside the one launch: the
-    largest of :data:`CLUSTER_SIZES` that leaves every rank
-    ``CLUSTER_MIN_POINTS`` dst points (8 from 512 points on: the 512-point
-    buckets are cut into 64-point parts, which measured about half the
-    one-pass time, ``PERF.md``). :func:`cluster_span` gives the chunk
-    length.
+    A smaller grid splits dst, by :func:`split_kind`. The matcher's sweeps
+    (either output, any form, ``m <= SPLIT_MIN_M``: few rows of a cluster
+    bucket) split it over one thread-block cluster per block of src points:
+    the smallest of :data:`CLUSTER_SIZES` that fills the card, or the
+    largest that leaves every rank ``CLUSTER_MIN_POINTS`` dst points where
+    none does (the 512-point buckets are cut into 8 parts of 64 points,
+    which measured about half the one-pass time, ``PERF.md``).
+    :func:`cluster_span` gives the chunk length.
 
-    The index output splits only a long sweep by few blocks (the
-    odometry's: one batch row against a map of ``m > SPLIT_MIN_M`` slots):
-    the elementwise and sentinel forms then spread dst over
-    ``SPLIT_SLICES`` blocks (at most one per chunk). That is far more
+    A long index sweep by few blocks (the odometry's: one batch row against
+    a map of ``m > SPLIT_MIN_M`` slots) spreads dst over ``SPLIT_SLICES``
+    blocks (at most one per chunk) merged by ``atomicMin``. That is far more
     blocks than one pass wants, because blocks of masked-out src points and
     slices of padding leave at once, and what is left should still fill the
     card. That split costs a scratch fill and a finish pass, which a short
     sweep does not earn back."""
-    if b * -(-n // THREADS) >= BLOCKS_PER_SM * sms:
+    blocks = b * -(-n // THREADS)
+    full = BLOCKS_PER_SM * sms
+    if blocks >= full:
         return 1
-    if points:
-        return max(s for s in CLUSTER_SIZES
-                   if s == 1 or s * CLUSTER_MIN_POINTS <= m)
-    if form == "expanded" or m <= SPLIT_MIN_M:
-        return 1
-    return min(-(-m // CHUNK), SPLIT_SLICES)
+    if split_kind(form, points, m) == "atomic":
+        return min(-(-m // CHUNK), SPLIT_SLICES)
+    sizes = [s for s in CLUSTER_SIZES
+             if s == 1 or s * CLUSTER_MIN_POINTS <= m]
+    return next((s for s in sizes if blocks * s >= full), sizes[-1])
+
+
+def check_plan(form: str, points: bool, slices: int | None,
+               split: str | None) -> None:
+    """Raise ``ValueError`` for a launch override that has no
+    instantiation: see :func:`masked_nn_cuda`."""
+    name = kernel_name(form, points)
+    if split is not None and split not in SPLITS[1:]:
+        raise ValueError(f"split must be one of {SPLITS[1:]}, got {split!r}")
+    if slices is not None and slices < 1:
+        raise ValueError(f"slices must be at least 1, got {slices}")
+    if split == "atomic" and (points or form == "expanded"):
+        raise ValueError(f"{name} has no atomic split (a points output, or "
+                         "a d2 that can be negative): it splits dst over a "
+                         "cluster")
+    if split == "cluster" and slices is not None \
+            and slices not in CLUSTER_SIZES:
+        raise ValueError(f"{name} splits dst over a cluster of "
+                         f"{CLUSTER_SIZES} blocks, not {slices}")
 
 
 def cluster_span(m: int, slices: int) -> int:
@@ -239,7 +272,7 @@ def cluster_span(m: int, slices: int) -> int:
 def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
                    dst_mask: torch.Tensor, *, form: str, points: bool,
                    src_mask: torch.Tensor | None = None,
-                   slices: int | None = None
+                   slices: int | None = None, split: str | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel. Returns (idx (B,N) int32 | pts (B,N,3) f32,
     dist (B,N) f32).
@@ -248,14 +281,19 @@ def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
     dst (B,M,3) float32, dst_mask (B,M) bool and, where given, src_mask
     (B,N) bool, all contiguous on one CUDA device. Anything else raises
     ``ValueError``. A src point that ``src_mask`` marks False is not swept:
-    it gets idx 0, dist 1e15 and the point (0,0,0). ``slices`` >= 1
-    overrides :func:`launch_plan` (tests and tuning); the result does not
-    depend on it. The points output takes one of :data:`CLUSTER_SIZES`, the
-    expanded form's index output only 1; another value raises.
+    it gets idx 0, dist 1e15 and the point (0,0,0).
+
+    ``slices`` >= 1 and ``split`` ("atomic" or "cluster") override
+    :func:`launch_plan` and :func:`split_kind` (tests and tuning); the result
+    does not depend on them. A cluster split takes one of
+    :data:`CLUSTER_SIZES` slices, either output, any form. The atomic split
+    exists for the index output of the elementwise and sentinel forms only;
+    anything else raises ``ValueError``.
     """
     global launches
     if form not in FORMS:
         raise ValueError(f"form must be one of {FORMS}, got {form!r}")
+    check_plan(form, points, slices, split)
     tensors = [("src", src, torch.float32), ("dst", dst, torch.float32),
                ("dst_mask", dst_mask, torch.bool)]
     if src_mask is not None:
@@ -295,17 +333,15 @@ def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
     if b == 0 or n == 0:
         return out, dist
     lib = load()
+    if split is None:
+        split = split_kind(form, points, m)
     if slices is None:
         slices = launch_plan(b, n, m, form, points, _sm_count(src.device))
-    if slices < 1:
-        raise ValueError(f"slices must be at least 1, got {slices}")
-    if points and slices not in CLUSTER_SIZES:
-        raise ValueError(f"{kernel_name(form, points)} splits dst over a "
-                         f"cluster of {CLUSTER_SIZES} blocks, not {slices}")
-    if slices > 1 and not points and form == "expanded":
-        raise ValueError(f"{kernel_name(form, points)} cannot split dst")
+    check_plan(form, points, slices, split)     # the two as resolved
+    if slices == 1:
+        split = "none"
     keys = None
-    if slices > 1 and not points:
+    if split == "atomic":
         keys = torch.full((b, n), _NONE_KEY, dtype=torch.int64,
                           device=src.device)
     name = kernel_name(form, points)
@@ -314,8 +350,8 @@ def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
         err = lib.icpflow_masked_nn(
             src.data_ptr(), dst.data_ptr(), dst_mask.data_ptr(),
             None if src_mask is None else src_mask.data_ptr(), b, n, m,
-            FORMS.index(form), int(points), slices, cluster_span(m, slices),
-            out.data_ptr(), dist.data_ptr(),
+            FORMS.index(form), int(points), SPLITS.index(split), slices,
+            cluster_span(m, slices), out.data_ptr(), dist.data_ptr(),
             None if keys is None else keys.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"masked_nn kernel launch failed: cudaError {err}")
@@ -323,7 +359,7 @@ def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
     variant_launches[name] += 1
     shape_launches[(name, b, n, m)] += 1
     if on_launch is not None:
-        on_launch(name, src, dst, dst_mask, src_mask)
+        on_launch(name, src, dst, dst_mask, src_mask, (slices, split))
     return out, dist
 
 

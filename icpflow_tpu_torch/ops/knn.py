@@ -206,8 +206,10 @@ def masked_nn_points(src: torch.Tensor, dst: torch.Tensor,
 def masked_nn_error(src: torch.Tensor, src_mask: torch.Tensor,
                     dst: torch.Tensor, dst_mask: torch.Tensor,
                     tile: int = 2048) -> torch.Tensor:
-    """Mean NN distance of valid src points into valid dst. Returns (B,)."""
-    _, d = masked_nn(src, dst, dst_mask, tile=tile)
+    """Mean NN distance of valid src points into valid dst. Returns (B,).
+    The distance is read only under ``src_mask`` (weight 0 elsewhere), so the
+    sweep skips the other rows, which changes no bit of the result."""
+    _, d = masked_nn(src, dst, dst_mask, tile=tile, src_mask=src_mask)
     w = src_mask.to(d.dtype)
     return torch.sum(d * w, dim=1) / torch.clamp(torch.sum(w, dim=1),
                                                  min=1e-9)

@@ -12,12 +12,15 @@ the plain version and on a numpy model of the split:
     (float32 bits of d2) << 32 | j equal the one-pass sweep, ties, empty
     slices and empty rows included;
 (c) ``src_mask``: masked-out src rows get idx 0 / zeros / 1e15, the others
-    are unchanged, and the odometry's ICP and the matcher's ICP return the
-    same pose with it;
-(d) the bound and the launch plan against hand-computed values;
-(e) the points output's split over a thread-block cluster: per-rank nearest
-    neighbours merged by the lexicographic minimum of (d2, order(j)) equal
-    the one-pass sweep for every form and cluster size.
+    are unchanged, and the odometry's ICP, the matcher's ICP and every
+    matcher caller of the index output (hypothesis scores, the rollback
+    test, the match statistics, the identity preference) return the same
+    bits with it;
+(d) the bound, the launch plan and the wrapper's checks of a launch
+    override against hand-computed values;
+(e) the split over a thread-block cluster, for either output: per-rank
+    nearest neighbours merged by the lexicographic minimum of
+    (d2, order(j)) equal the one-pass sweep for every form and cluster size.
 
 Every comparison is exact (bit for bit) unless it says otherwise.
 """
@@ -26,10 +29,14 @@ import numpy as np
 import pytest
 import torch
 
+import icpflow_tpu_torch as T
+from icpflow_tpu_torch.match import matcher as tmatcher
 from icpflow_tpu_torch.ops import ego as tego
+from icpflow_tpu_torch.ops import hist as thist
 from icpflow_tpu_torch.ops import icp as ticp
 from icpflow_tpu_torch.ops import knn as tknn
 from icpflow_tpu_torch.ops.cuda import nn_kernel
+from icpflow_tpu_torch.ops.segments import SegmentBatch
 
 torch.set_num_threads(2)
 FORMS_POINTS = [(f, p) for f in ("expanded", "elementwise", "sentinel")
@@ -307,6 +314,105 @@ def test_register_frame_icp_same_pose_with_and_without_src_mask(monkeypatch):
     assert np.linalg.norm(with_mask[:3, 3].numpy() - shift) < 0.02
 
 
+_INDEX_CFG = T.DEMO.replace(
+    max_points=256, max_points_small=128, hist_grid_xy=32,
+    hist_grid_xy_small=0, icp_max_iters=8, nn_tile=128,
+    per_point_identity=True)
+
+
+def _index_callers():
+    """name -> (run(), the (B,N) masks its result may be read under): every
+    matcher caller of the index-output sweep, on the pairs of
+    ``_icp_pairs`` (junk in the padding)."""
+    src, sm, dst, dm = _icp_pairs()
+    init = torch.eye(4).expand(len(src), 4, 4).clone()
+    init[:, 0, 3] = 0.05
+    shifts = torch.tensor([[0.0, 0.0, 0.0], [0.05, 0.0, 0.0],
+                           [0.0, -0.04, 0.02]])
+    moved_k = src[None] + shifts[:, None, None, :]
+    rows = torch.arange(len(src))
+    segs = [SegmentBatch(xyz=x, mask=m, count=m.sum(1),
+                         mean=torch.zeros(len(x), 3),
+                         extent=torch.ones(len(x), 3),
+                         pidx=torch.zeros(m.shape, dtype=torch.int32))
+            for x, m in ((src, sm), (dst, dm))]
+    return {
+        "masked_nn_error": lambda: tknn.masked_nn_error(src, sm, dst, dm,
+                                                        tile=128),
+        "_score_hypotheses": lambda: thist._score_hypotheses(
+            moved_k, sm, dst, dm, 128, cap=100),
+        "apply_icp": lambda: ticp.apply_icp(src, sm, dst, dm, init,
+                                            max_iters=8),
+        "match_eval": lambda: torch.cat(tmatcher.match_eval(
+            src, sm, dst, dm, init, _INDEX_CFG), dim=1),
+        "_solve_bucket": lambda: tmatcher._solve_bucket(
+            segs[0], segs[1], rows, rows, 1.0, _INDEX_CFG, 256),
+    }
+
+
+@pytest.mark.parametrize("entry", ["masked_nn_error", "_score_hypotheses",
+                                   "apply_icp", "match_eval",
+                                   "_solve_bucket"])
+@pytest.mark.parametrize("variant", ["mxu", "vpu", "vpu2"])
+def test_index_callers_same_bits_with_and_without_src_mask(variant, entry,
+                                                           monkeypatch):
+    """Every matcher caller of ``masked_nn`` passes the mask it reads the
+    distances under as ``src_mask``. A masked-out row then reads 1e15
+    instead of a finite distance, but only ever times a weight of 0 or
+    under a False mask, so each result is the same bits as from sweeps over
+    all rows, in every form."""
+    monkeypatch.setenv("ICPFLOW_NN_VARIANT", variant)
+    run = _index_callers()[entry]
+
+    def flat(out):
+        out = out if isinstance(out, tuple) else (out,)
+        return [o.clone() for o in out]
+
+    with_mask = flat(run())
+    seen = []
+    real = tknn.masked_nn
+
+    def no_src_mask(*a, src_mask=None, **kw):
+        seen.append(src_mask is not None)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tknn, "masked_nn", no_src_mask)
+    without = flat(run())
+    assert seen and all(seen)                 # every call passed one
+    assert len(seen) == {"masked_nn_error": 1, "_score_hypotheses": 2,
+                         "apply_icp": 2, "match_eval": 2}.get(entry,
+                                                              len(seen))
+    for a, b in zip(with_mask, without):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+        assert a.dtype == torch.bool or torch.isfinite(a).all()
+    if entry == "_solve_bucket":              # 4 identity / T sweeps at least
+        assert len(seen) >= 4
+        T_, stats, accept, id_pt = with_mask
+        assert stats.shape == (4, 8) and id_pt.shape == (4, 256)
+        assert (stats[:, 2] > 0).all()        # inliers were counted
+
+
+def test_backward_sweeps_take_the_dst_side_mask(monkeypatch):
+    """The backward sweeps (dst -> moved src) are read under the *dst*
+    cluster's mask: that, not the src cluster's, is their ``src_mask``."""
+    src, sm, dst, dm = _icp_pairs()
+    dm = dm.clone()
+    dm[:, 50:] = False                        # the two sides now differ
+    got = []
+    real = tknn.masked_nn
+
+    def spy(s, d, d_mask, *, src_mask=None, **kw):
+        got.append((d_mask.clone(), src_mask.clone()))
+        return real(s, d, d_mask, src_mask=src_mask, **kw)
+
+    monkeypatch.setattr(tknn, "masked_nn", spy)
+    tmatcher.match_eval(src, sm, dst, dm, torch.eye(4).expand(4, 4, 4),
+                        _INDEX_CFG)
+    (f_dst, f_src), (b_dst, b_src) = got
+    assert torch.equal(f_dst, dm) and torch.equal(f_src, sm)
+    assert torch.equal(b_dst, sm) and torch.equal(b_src, dm)
+
+
 def test_wrapper_refuses_cpu_tensors_and_bad_src_masks():
     src, dst, rng = _cloud(23, m=64)
     t = [torch.as_tensor(a) for a in (src, dst, np.ones(dst.shape[:2], bool))]
@@ -316,6 +422,59 @@ def test_wrapper_refuses_cpu_tensors_and_bad_src_masks():
                                                      dtype=torch.bool))
     with pytest.raises(ValueError, match="form"):
         nn_kernel.masked_nn_cuda(*t, form="vpu", points=False)
+    # a launch override that exists is let through to the tensor checks
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        nn_kernel.masked_nn_cuda(*t, form="expanded", points=False,
+                                 slices=4, split="cluster")
+
+
+@pytest.mark.parametrize("form,points,slices,split,message", [
+    ("expanded", False, 2, "atomic", "no atomic split"),   # d2 can be < 0
+    ("expanded", False, None, "atomic", "no atomic split"),
+    ("elementwise", True, 2, "atomic", "no atomic split"),  # a points output
+    ("sentinel", True, None, "atomic", "no atomic split"),
+    ("elementwise", False, 3, "cluster", "cluster of"),
+    ("expanded", False, 16, "cluster", "cluster of"),
+    ("sentinel", True, 5, "cluster", "cluster of"),
+    ("elementwise", False, 2, "both", "split must be"),
+    ("elementwise", False, 2, "none", "split must be"),
+    ("sentinel", False, 0, None, "at least 1"),
+    ("expanded", True, -1, "cluster", "at least 1"),
+])
+def test_wrapper_refuses_a_launch_it_cannot_make(form, points, slices, split,
+                                                 message):
+    """The overrides are checked before anything else, so the refusal shows
+    on a machine without a card too."""
+    src, dst, _ = _cloud(25, m=64)
+    t = [torch.as_tensor(a) for a in (src, dst, np.ones(dst.shape[:2], bool))]
+    with pytest.raises(ValueError, match=message):
+        nn_kernel.check_plan(form, points, slices, split)
+    with pytest.raises(ValueError, match=message):
+        nn_kernel.masked_nn_cuda(*t, form=form, points=points, slices=slices,
+                                 split=split)
+
+
+@pytest.mark.parametrize("form,points,slices,split", [
+    ("expanded", False, 8, "cluster"), ("sentinel", False, 4, "cluster"),
+    ("elementwise", False, 1, "cluster"), ("elementwise", False, 64, "atomic"),
+    ("sentinel", False, 3, "atomic"), ("sentinel", False, 1, "atomic"),
+    ("expanded", True, 2, "cluster"), ("elementwise", False, None, None),
+    ("elementwise", False, 7, None), ("expanded", False, None, "cluster")])
+def test_wrapper_accepts_every_launch_it_can_make(form, points, slices, split):
+    nn_kernel.check_plan(form, points, slices, split)
+
+
+@pytest.mark.parametrize("form,points,m,want", [
+    ("elementwise", False, 262144, "atomic"),      # the odometry's map
+    ("sentinel", False, 8193, "atomic"),
+    ("elementwise", False, 8192, "cluster"),       # the matcher's buckets
+    ("sentinel", False, 4096, "cluster"),
+    ("expanded", False, 512, "cluster"),
+    ("expanded", False, 262144, "cluster"),        # d2 can be < 0: never keys
+    ("elementwise", True, 262144, "cluster"),      # a points output
+    ("sentinel", True, 4096, "cluster")])
+def test_split_kind(form, points, m, want):
+    assert nn_kernel.split_kind(form, points, m) == want
 
 
 # -- (d) the bound and the launch plan ----------------------------------------
@@ -352,25 +511,46 @@ def test_bound_ms_against_hand_computed_values():
     ((1, 16384, 262144), "elementwise", False, 64),        # the odometry
     ((1, 300, 9000), "sentinel", False, 18),               # one slice a chunk
     ((1, 16384, 262144), "elementwise", True, 8),          # points: a cluster
-    ((1, 16384, 262144), "expanded", False, 1),            # d2 can be < 0
-    ((7, 4096, 4096), "elementwise", False, 1),            # a short sweep
+    ((1, 16384, 262144), "expanded", False, 8),            # d2 can be < 0:
+    ((7, 4096, 4096), "elementwise", False, 4),            # over a cluster
     ((1, 128, 8193), "elementwise", False, 17),            # just long enough
-    ((1, 128, 8192), "elementwise", False, 1),
+    ((1, 128, 8192), "elementwise", False, 8),             # a cluster's
     ((8, 8448, 262144), "elementwise", False, 1),          # 528 blocks: full
     ((8, 8320, 262144), "sentinel", False, 64),            # 520 blocks: split
     ((7, 1024, 4096), "elementwise", True, 8),             # the ICP sweep
     ((7, 1024, 4096), "sentinel", True, 8),
     ((66, 1024, 4096), "elementwise", True, 1),            # 528 blocks: full
-    ((65, 1024, 4096), "expanded", True, 8),               # 520 blocks
+    ((65, 1024, 4096), "expanded", True, 2),               # 520 blocks
     ((4, 512, 512), "expanded", True, 8),                  # 64 dst a rank
     ((3, 200, 300), "sentinel", True, 4),
     ((1, 128, 128), "elementwise", True, 2),
     ((1, 128, 127), "elementwise", True, 1),               # too short to cut
+    # the matcher's index sweeps: 224 blocks -> 896, 112 -> 896, 32 -> 256,
+    # 64 -> 512 (the 512-point buckets never fill the card: 64 dst a rank)
+    ((7, 4096, 4096), "expanded", False, 4),
+    ((7, 4096, 4096), "sentinel", False, 4),
+    ((14, 1024, 4096), "expanded", False, 8),
+    ((14, 1024, 4096), "elementwise", False, 8),
+    ((14, 1024, 4096), "sentinel", False, 8),
+    ((56, 256, 4096), "expanded", False, 8),
+    ((56, 256, 4096), "elementwise", False, 8),
+    ((56, 256, 4096), "sentinel", False, 8),
+    ((8, 512, 512), "expanded", False, 8),
+    ((8, 512, 512), "elementwise", False, 8),
+    ((8, 512, 512), "sentinel", False, 8),
+    ((32, 256, 512), "expanded", False, 8),
+    ((32, 256, 512), "elementwise", False, 8),
+    ((32, 256, 512), "sentinel", False, 8),
+    ((33, 4096, 4096), "sentinel", False, 1),              # 1056 blocks: full
+    ((16, 4096, 4096), "elementwise", False, 2),           # 512 blocks -> 1024
+    ((2048, 512, 512), "expanded", False, 1),              # the nominal rows
+    ((256, 1024, 4096), "sentinel", False, 1),
 ])
 def test_launch_plan(shape, form, points, want):
     assert nn_kernel.launch_plan(*shape, form, points, 132) == want
     m = shape[2]
-    if points:         # a cluster of at most 8 ranks, each with 64 dst or more
+    if nn_kernel.split_kind(form, points, m) == "cluster":
+        # a cluster of at most 8 ranks, each with 64 dst or more
         assert want in nn_kernel.CLUSTER_SIZES and want <= 8
         assert want == 1 or want * nn_kernel.CLUSTER_MIN_POINTS <= m
         span = nn_kernel.cluster_span(m, want)
@@ -417,12 +597,13 @@ def _cluster_inputs(m, seed):
     return src.astype(np.float32), dst.astype(np.float32), mask
 
 
-def _cluster_model(src, dst, mask, form, slices, span):
-    """The cluster split of the points output in plain PyTorch. Rank z
-    sweeps chunks z, z + S, ... of ``span`` dst points in index order from
-    (1e30, 0), which leaves the minimum of (d2, order(j)) over its chunks;
-    rank 0 merges the ranks by the same order. d2 comes from the plain
-    version's own arithmetic. Returns (pts, dist, j)."""
+def _cluster_model(src, dst, mask, form, slices, span, points=True):
+    """The cluster split in plain PyTorch. Rank z sweeps chunks z, z + S,
+    ... of ``span`` dst points in index order from (1e30, 0), which leaves
+    the minimum of (d2, order(j)) over its chunks; rank 0 merges the ranks
+    by the same order: order(j) = j, or (j mod 8, j div 8) for the sentinel
+    form's points output. d2 comes from the plain version's own arithmetic.
+    Returns (pts, dist, j), or (idx, dist, j) for the index output."""
     s, d, mk = (torch.as_tensor(a) for a in (src, dst, mask))
     b, n, m = s.shape[0], s.shape[1], d.shape[1]
     sentinel = form == "sentinel"
@@ -434,7 +615,7 @@ def _cluster_model(src, dst, mask, form, slices, span):
     if not sentinel:
         d2 = torch.where(mk[:, None, :], d2, torch.full_like(d2, np.inf))
     j = torch.arange(m)
-    order = (j % 8) * (m // 8 + 1) + j // 8 if sentinel else j
+    order = (j % 8) * (m // 8 + 1) + j // 8 if sentinel and points else j
     big = torch.tensor(1e30)
     best = big.expand(b, n).clone()
     best_j = torch.zeros((b, n), dtype=torch.int64)
@@ -457,6 +638,9 @@ def _cluster_model(src, dst, mask, form, slices, span):
         best_j = torch.where(take, rj, best_j)
     found = best < big
     dist = torch.sqrt(torch.clamp(torch.where(found, best, big), min=0.0))
+    if not points:       # rank 0 writes the index, clamped, 0 where none
+        idx = torch.clamp(torch.where(found, best_j, 0), max=m - 1)
+        return idx.to(torch.int32), dist, best_j
     pts = torch.gather(d, 1, best_j[:, :, None].expand(b, n, 3))
     pts = torch.where(found[:, :, None], pts, torch.zeros_like(pts))
     return pts, dist, best_j
@@ -488,3 +672,55 @@ def test_cluster_model_equals_one_pass(form, slices, m):
         assert (dist[2] == 1e15).all() and (pts[2] == 0).all()
     if form == "expanded":      # negative d2 met the merge: sqrt(max(d2, 0))
         assert (dist[3] == 0).any()
+
+
+@pytest.mark.parametrize("m", [520, 1025, 2049])
+@pytest.mark.parametrize("slices", [1, 2, 4, 8])
+@pytest.mark.parametrize("form", ["expanded", "elementwise", "sentinel"])
+def test_cluster_model_of_the_index_output_equals_one_pass(form, slices, m):
+    """The index output over a cluster: ragged M, a three-way tie across
+    ranks (the lowest j in every form: the carry order is the points
+    output's alone), a row whose other ranks hold only padding, a row with
+    no valid dst, and negative expanded-form d2."""
+    src, dst, mask = _cluster_inputs(m, 41)
+    span = nn_kernel.cluster_span(m, slices)
+    want_i, want_d = _plain(src, dst, mask, form=form, points=False)
+    idx, dist, j = _cluster_model(src, dst, mask, form, slices, span,
+                                  points=False)
+    np.testing.assert_array_equal(dist.numpy().view(np.uint32),
+                                  want_d.view(np.uint32))
+    np.testing.assert_array_equal(idx.numpy(), want_i)
+    assert idx.dtype == torch.int32
+    for i, trio in enumerate(_TIES):
+        assert dist[0, i] == 1.0 and int(idx[0, i]) == min(trio)
+        if slices > 1:                           # the trio met in the merge
+            assert len({(t // span) % slices for t in trio}) > 1
+    assert ((idx[1] >= 256) & (idx[1] < 512)).all()  # the one valid chunk
+    assert (idx[2] == 0).all()                       # nothing valid
+    if form == "sentinel":
+        assert (dist[2] > 1.7e6).all()
+    else:
+        assert (dist[2] == 1e15).all()
+    if form == "expanded":      # negative d2 met the merge: sqrt(max(d2, 0))
+        assert (dist[3] == 0).any()
+
+
+@pytest.mark.parametrize("points", [False, True])
+@pytest.mark.parametrize("form", ["expanded", "elementwise", "sentinel"])
+def test_cluster_model_with_ranks_that_have_no_chunk(form, points):
+    """Fewer chunks than ranks (M = 20 over 8 ranks: three chunks of 8), and
+    ranks whose only chunk is padding: they arrive with (1e30, 0), which
+    never beats a found candidate, and idx is clamped to m - 1."""
+    src, dst, rng = _cloud(43, b=3, n=30, m=20)
+    mask = np.ones((3, 20), bool)
+    mask[1, :16] = False                 # only the last, ragged chunk valid
+    mask[2] = False
+    span = nn_kernel.cluster_span(20, 8)
+    assert span == 8 and -(-20 // span) < 8
+    want_o, want_d = _plain(src, dst, mask, form=form, points=points)
+    out, dist, j = _cluster_model(src, dst, mask, form, 8, span,
+                                  points=points)
+    np.testing.assert_array_equal(dist.numpy().view(np.uint32),
+                                  want_d.view(np.uint32))
+    np.testing.assert_array_equal(out.numpy(), want_o)
+    assert (j[1] >= 16).all() and (j[2] == 0).all()

@@ -1,4 +1,4 @@
-"""Tuning record of the points-output NN sweep's cluster split, on the card.
+"""Tuning record of the NN sweeps' cluster split, on the card.
 
     python3 tests/torch_cluster_tune.py        (an NVIDIA GPU and nvcc)
 
@@ -16,7 +16,9 @@ host time), and prints microseconds a launch:
    and merges but skips the candidates, ``nomerge`` skips the cluster
    barriers and the merge, ``nocluster`` is ``nomerge`` launched without
    the cluster attribute. Their results are wrong on purpose; only their
-   time is read.
+   time is read. The matcher's index-output sweeps (7 x 4096 x 4096 and
+   14 x 1024 x 4096, at the cluster size ``launch_plan`` gives them) get
+   the same ``[parts]`` lines.
 """
 
 import ctypes
@@ -33,6 +35,7 @@ from icpflow_tpu_torch.ops.cuda import nn_kernel  # noqa: E402
 
 SHAPES = ((7, 1024, 4096), (1, 1024, 4096), (14, 256, 4096), (4, 512, 512))
 FORMS = ("elementwise", "sentinel")
+INDEX_SHAPES = ((7, 4096, 4096), (14, 1024, 4096), (8, 512, 512))
 CUTS = {
     "nosweep": [("    __syncthreads();\n    // groups of kGroup candidates",
                  "    __syncthreads();\n    if (kMode == kCluster) continue;"
@@ -72,17 +75,20 @@ def build_cuts():
     return libs
 
 
-def replay_us(lib, form, s, d, mk, slices, span):
-    """Microseconds a launch of one points-output sweep, graph-replayed."""
+def replay_us(lib, form, s, d, mk, slices, span, points=True):
+    """Microseconds a launch of one sweep, graph-replayed."""
     b, n, m = s.shape[0], s.shape[1], d.shape[1]
-    out = torch.empty((b, n, 3), device="cuda")
+    out = torch.empty((b, n, 3), device="cuda") if points else torch.empty(
+        (b, n), dtype=torch.int32, device="cuda")
     dist = torch.empty((b, n), device="cuda")
 
     def launch():
         err = lib.icpflow_masked_nn(
             s.data_ptr(), d.data_ptr(), mk.data_ptr(), None, b, n, m,
-            nn_kernel.FORMS.index(form), 1, slices, span, out.data_ptr(),
-            dist.data_ptr(), None, torch.cuda.current_stream().cuda_stream)
+            nn_kernel.FORMS.index(form), int(points),
+            nn_kernel.SPLITS.index("cluster" if slices > 1 else "none"),
+            slices, span, out.data_ptr(), dist.data_ptr(), None,
+            torch.cuda.current_stream().cuda_stream)
         assert err == 0, f"cudaError {err}"
 
     return chip_smoke._device_ms(launch, iters=50) * 1e3
@@ -124,6 +130,21 @@ def main():
                 for name, lib in libs.items())
             print(f"[parts] {form} {shape} random 0.9 S={slices}/{span}: "
                   f"{line} us | {card}", flush=True)
+    for shape in INDEX_SHAPES:
+        b, n, m = shape
+        src, dst, mask = chip_smoke._inputs(*shape, 200)
+        s, d, mk = (torch.as_tensor(a, device="cuda")
+                    for a in (src, dst, mask))
+        slices = nn_kernel.launch_plan(b, n, m, "elementwise", False, 132)
+        span = nn_kernel.cluster_span(m, slices)
+        for form in FORMS + ("expanded",):
+            one = replay_us(libs["whole"], form, s, d, mk, 1, 512, False)
+            line = " ".join(
+                f"{name} "
+                f"{replay_us(lib, form, s, d, mk, slices, span, False):.2f}"
+                for name, lib in libs.items())
+            print(f"[parts] {form} index {shape} random 0.9 S=1 {one:.2f} "
+                  f"S={slices}/{span}: {line} us | {card}", flush=True)
     return 0
 
 
