@@ -34,8 +34,19 @@ Phases, one line each, any failure ends with a non-zero exit:
    default policy, after a two-frame warm-up; each frame is checked
    against the GT pose and flow and against ``JAX_STREAM_REFERENCE``.
 
-6. launch table: the launches per kernel and (B, N, M) are those phases 4
-   and 5 counted. Both paths then run once more with every NN launch's
+6. offline path: the port's CLI (``icpflow_tpu_torch.cli.run``: npz
+   decode, ``DatasetPCA`` with CZM ground removal, GT or estimated ego
+   poses and joint clustering in the 262144-slot bucket, gaps 1-4 through
+   the matcher, flow on the raw points, the metric sweep) on the scene
+   written as a PCAccumulation-format sample, at the bench configuration
+   with the held-out protocol's crop, for seeds 7 and 8: with GT poses,
+   with ``--if_kiss_icp`` (a fresh root, so no pose cache is read) and,
+   seed 7, with GT poses under ``ICPFLOW_NN_VARIANT=vpu2``. Meters, poses,
+   non-ground points per frame and labelled clusters per pair are checked
+   against ``JAX_OFFLINE_REFERENCE``; stage milliseconds by CUDA events;
+
+7. launch table: the launches per kernel and (B, N, M) are those phases 4
+   to 6 counted. The paths then run once more with every NN launch's
    inputs kept (the same launches, or the run fails), and each is launched
    again alone: valid pairs, kernel milliseconds and bound per kernel and
    (N, M), a pair and a stream frame, ranked by the time lost against the
@@ -53,7 +64,9 @@ table as JSON, and ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile`` instead profiles one warm stream frame
 under each policy with ``torch.profiler`` (device busy and idle share, the
-exact sweep's share) and prints no result line.
+exact sweep's share) and prints no result line; ``python3 chip_smoke.py
+--offline`` runs only the offline path after the build, and prints none
+either.
 """
 
 from __future__ import annotations
@@ -66,6 +79,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -130,6 +144,144 @@ JAX_STREAM_REFERENCE = {
                   [1.9467093181901873e-07, -1.9051311028306372e-05,
                    1.0, 0.002566578099504113]]),
 }
+# The JAX package's CLI (``run`` of ``icpflow_tpu/cli.py``) on the same samples
+# (XLA:CPU, jax 0.9.0; `python3 tests/torch_smoke_reference.py --offline`;
+# seed 7 had 10,611 / 22,749 / 31,065 / 39,159 / 45,036 map points and
+# 2,479-2,837 source points, seed 8 10,592-44,925 and 2,431-2,811), per seed
+# and ego source ("gt": GT poses, "kiss": ``--if_kiss_icp``): the EPE3D
+# meters of ``offline_meter_names()``, the non-ground points of each frame,
+# the labelled clusters of each frame pair and, for "kiss", the estimated
+# poses' top 3x4 rows. The "kiss" runs were made at ego_map_capacity 65536
+# and ego_src_capacity 4096; the script prints the fill counts that show
+# nothing was truncated, so the padded capacity does not change the result.
+JAX_OFFLINE_REFERENCE = {7: {'gt': {'meters': {'overall_0': 0.0003354838991072029,
+                       'dynamic_0': 0.003749481402337551,
+                       'static_0': 0.0,
+                       'overall_1': 0.0003254579787608236,
+                       'dynamic_1': 0.003747359151020646,
+                       'static_1': 0.0,
+                       'overall_2': 0.00028625759296119213,
+                       'dynamic_2': 0.0032036106567829847,
+                       'static_2': 0.0,
+                       'overall_3': 0.0002889338356908411,
+                       'dynamic_3': 0.0031932673882693052,
+                       'static_3': 0.0,
+                       'overall_4': 0.0004410862165968865,
+                       'dynamic_4': 0.0048364694230258465,
+                       'static_4': 0.0,
+                       'overall_5': 0.0003354838991072029},
+            'points': [90203, 90482, 90754, 90890, 90992],
+            'nonground': [63868, 64053, 64216, 64311, 64364],
+            'clusters': [8, 8, 8, 9]},
+     'kiss': {'meters': {'overall_0': 0.0019105359679087996,
+                         'dynamic_0': 0.003874522401019931,
+                         'static_0': 0.001717540668323636,
+                         'overall_1': 0.0014545960584655404,
+                         'dynamic_1': 0.0037483188789337873,
+                         'static_1': 0.001236439449712634,
+                         'overall_2': 0.0016715271631255746,
+                         'dynamic_2': 0.003456113627180457,
+                         'static_2': 0.001496419426985085,
+                         'overall_3': 0.0019306938629597425,
+                         'dynamic_3': 0.0032094528432935476,
+                         'static_3': 0.0018034783424809575,
+                         'overall_4': 0.002582591027021408,
+                         'dynamic_4': 0.00506241712719202,
+                         'static_4': 0.00233373511582613,
+                         'overall_5': 0.0019105359679087996},
+              'points': [90203, 90482, 90754, 90890, 90992],
+              'nonground': [63868, 64053, 64216, 64311, 64364],
+              'clusters': [8, 8, 8, 9],
+              'poses': [[[1.0, 0.0, 0.0, 0.0], [0.0, 1.0, 0.0, 0.0],
+                         [0.0, 0.0, 1.0, 0.0]],
+                        [[1.0000001192092896, -4.6122611820464954e-05,
+                          -5.002430043532513e-06, 1.1006019115447998],
+                         [4.614404679159634e-05, 1.0, 4.90063575853128e-05,
+                          0.10036304593086243],
+                         [5.002072612114716e-06, -4.900856947642751e-05,
+                          1.0000001192092896, 0.0011008920846506953]],
+                        [[1.0, -3.259550067014061e-05, -1.4016021850693505e-05,
+                          2.200529098510742],
+                         [3.259338700445369e-05, 1.0, 3.221430961275473e-05,
+                          0.2009759098291397],
+                         [1.4015539818501566e-05, -3.221514998585917e-05, 1.0,
+                          0.001745547167956829]],
+                        [[1.0, -5.18773595103994e-05, 2.2750537027604878e-05,
+                          3.3011531829833984],
+                         [5.187454371480271e-05, 1.0, 7.478041516151279e-05,
+                          0.30100560188293457],
+                         [-2.2755053578293882e-05, -7.478063344024122e-05,
+                          1.0000001192092896, 0.0015333890914916992]],
+                        [[0.9999998807907104, -6.485219637397677e-05,
+                          -2.447984843456652e-05, 4.399832248687744],
+                         [6.484984623966739e-05, 1.0, 6.535615830216557e-05,
+                          0.4006277620792389],
+                         [2.4473883968312293e-05, -6.53546885587275e-05,
+                          0.9999998807907104, 0.0024150600656867027]]]}},
+ 8: {'gt': {'meters': {'overall_0': 0.0003769993199966848,
+                       'dynamic_0': 0.0042066993191838264,
+                       'static_0': 0.0,
+                       'overall_1': 0.0004070152062922716,
+                       'dynamic_1': 0.004684451036155224,
+                       'static_1': 0.0,
+                       'overall_2': 0.0003511591348797083,
+                       'dynamic_2': 0.003934173379093409,
+                       'static_2': 0.0,
+                       'overall_3': 0.0004978921497240663,
+                       'dynamic_3': 0.005494029726833105,
+                       'static_3': 0.0,
+                       'overall_4': 0.000252176629146561,
+                       'dynamic_4': 0.0027502626180648804,
+                       'static_4': 0.0,
+                       'overall_5': 0.0003769993199966848},
+            'points': [90172, 90484, 90750, 90884, 91033],
+            'nonground': [63732, 63888, 64061, 64142, 64224],
+            'clusters': [8, 8, 8, 9]},
+     'kiss': {'meters': {'overall_0': 0.0023020668886601925,
+                         'dynamic_0': 0.0040373955853283405,
+                         'static_0': 0.002131239278241992,
+                         'overall_1': 0.0019644731655716896,
+                         'dynamic_1': 0.004623973276466131,
+                         'static_1': 0.0017114111687988043,
+                         'overall_2': 0.002155255526304245,
+                         'dynamic_2': 0.00408421503379941,
+                         'static_2': 0.0019662047270685434,
+                         'overall_3': 0.002626044675707817,
+                         'dynamic_3': 0.004744128789752722,
+                         'static_3': 0.0024149660021066666,
+                         'overall_4': 0.002460752846673131,
+                         'dynamic_4': 0.002741411328315735,
+                         'static_4': 0.0024324210826307535,
+                         'overall_5': 0.0023020668886601925},
+              'points': [90172, 90484, 90750, 90884, 91033],
+              'nonground': [63732, 63888, 64061, 64142, 64224],
+              'clusters': [8, 8, 8, 9],
+              'poses': [[[1.0, 0.0, 0.0, 0.0], [0.0, 1.0, 0.0, 0.0],
+                         [0.0, 0.0, 1.0, 0.0]],
+                        [[1.0, -6.117862358223647e-05, 1.9054106132898596e-06,
+                          1.1005207300186157],
+                         [6.116464646765962e-05, 1.0000001192092896,
+                          -1.844921030169644e-06, 0.10068173706531525],
+                         [-1.9024171251658117e-06, 1.8429634565109154e-06,
+                          1.0000001192092896, 0.0009632353321649134]],
+                        [[1.0000001192092896, -4.2606014176271856e-05,
+                          1.5176775377767626e-05, 2.200467586517334],
+                         [4.259893103153445e-05, 1.0, 1.1115261258964892e-05,
+                          0.20029082894325256],
+                         [-1.5177704881352838e-05, -1.111587516788859e-05,
+                          1.0000001192092896, 0.0016143831890076399]],
+                        [[1.0000001192092896, -6.156192830530927e-05,
+                          2.5198418370564468e-05, 3.3009531497955322],
+                         [6.156126619316638e-05, 1.0, 1.1660989912343211e-05,
+                          0.3007555603981018],
+                         [-2.5198538423865102e-05, -1.1660935342661105e-05,
+                          1.0000001192092896, 0.0017042160034179688]],
+                        [[1.0000001192092896, -4.141709359828383e-05,
+                          -6.576185114681721e-06, 4.4009318351745605],
+                         [4.138169970246963e-05, 1.0000001192092896,
+                          -9.698197573015932e-06, 0.40000107884407043],
+                         [6.5784452090156265e-06, 9.694539585325401e-06,
+                          1.000000238418579, 0.0020787965040653944]]]}}}
 # documented knife-edge band of the accuracy guardrails: sub-mm NN
 # differences (here: the elementwise or sentinel form on the card vs the
 # expanded form everywhere on XLA:CPU) flip borderline ICP basins
@@ -137,6 +289,13 @@ EPE_BAND = 0.005
 MATCHED_BAND = 1
 POSE_BAND_M = 0.01
 POSE_BAND_DEG = 0.1
+
+# non-ground points of a frame and labelled clusters of a pair may differ
+# from JAX's by this much: an ulp of atan2 or of a plane fit moves a point
+# across a CZM sector or the ground threshold, and a cluster at the
+# min_cluster_size edge appears or not
+NONGROUND_BAND = 0.002          # share of the frame's points
+CLUSTER_BAND = 2
 
 _TPU = "icpflow_tpu/ops/pallas/nn_kernel.py:"
 # kernel name -> (form, points output, the TPU kernel it replaces, shapes
@@ -225,6 +384,99 @@ def stream_frames(seed=SEED):
         gts.append(gt.astype(np.float32))
         dyns.append(sample["sd_labels"][sel] > 0)
     return scans, sample["ego_motion_gt"], gts, dyns
+
+
+# bench.py heldout_eval(): the held-out protocol's crop and frame count
+OFFLINE_FIELDS = dict(dataset="waymo", range_x=32.0, range_y=32.0,
+                      range_z=-1.6, ground_slack=0.3, num_frames=NUM_FRAMES)
+OFFLINE_SEEDS = (7, 8)
+
+
+def offline_config(kiss):
+    """The bench configuration with the held-out protocol's fields."""
+    return bench_config().replace(use_kiss_icp=kiss, **OFFLINE_FIELDS)
+
+
+def offline_argv(root, kiss, device=None):
+    """The command line of one offline run over the samples in ``root``."""
+    argv = ["--dataset", "waymo", "--split", "test", "--root", root]
+    if kiss:
+        argv.append("--if_kiss_icp")
+    if device is not None:
+        argv += ["--device", device]
+    return argv
+
+
+def offline_meter_names():
+    """The meters an offline run is held to: per gap, all points and per
+    scene, over all, moving and static points."""
+    return [f"{cat}_{k}" for k in range(NUM_FRAMES)
+            for cat in ("overall", "dynamic", "static")] + [
+                f"overall_{NUM_FRAMES}"]
+
+
+def offline_counts(pairs):
+    """(non-ground points of each frame, labelled clusters of each pair)
+    from the (src, dst) label arrays ``DatasetPCA`` hands the matcher."""
+    ground = -(10 ** 8)
+    nonground = [int((pairs[0]["label_dst"] != ground).sum())] + [
+        int((p["label_src"] != ground).sum()) for p in pairs]
+    clusters = []
+    for p in pairs:
+        lab = np.concatenate([p["label_src"], p["label_dst"]])
+        clusters.append(int(len(np.unique(lab[lab >= 0]))))
+    return nonground, clusters
+
+
+@contextlib.contextmanager
+def capture_prepare(dataset_cls, kept):
+    """Append every (data, pairs) that ``dataset_cls._prepare`` returns
+    inside the block to ``kept``."""
+    orig = dataset_cls._prepare
+
+    def prepare(self, *args, **kw):
+        out = orig(self, *args, **kw)
+        kept.append(out)
+        return out
+
+    dataset_cls._prepare = prepare
+    try:
+        yield
+    finally:
+        dataset_cls._prepare = orig
+
+
+def run_offline(cli, dataset_cls, cfg, seed, kiss, device=None,
+                timings=None):
+    """One offline run of ``cli`` (either package's) over the scene of
+    ``seed``, written by ``make_sample`` into a fresh directory. The
+    working directory is that directory and the root is relative, so that
+    neither the pose cache nor the resume state of another run is read, and
+    no word of the path above it ("test", "val", "train") moves the cache.
+    Returns (meters, data, pairs, seconds of ``cli.run``, its printed
+    lines)."""
+    from icpflow_tpu_torch.data.synthetic import make_sample
+    kept, out = [], io.StringIO()
+    orig, cwd = cli.config_from_args, os.getcwd()
+    with tempfile.TemporaryDirectory() as td:
+        os.mkdir(os.path.join(td, "pca"))
+        make_sample(os.path.join(td, "pca", f"scene{seed}.npz"),
+                    num_frames=NUM_FRAMES, seed=seed)
+        args = cli.build_parser().parse_args(offline_argv("pca", kiss, device))
+        cli.config_from_args = lambda a: cfg
+        os.chdir(td)
+        try:
+            with capture_prepare(dataset_cls, kept), \
+                    contextlib.redirect_stdout(out):
+                t0 = time.perf_counter()
+                meters = (cli.run(args) if timings is None
+                          else cli.run(args, timings=timings))
+                seconds = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+            cli.config_from_args = orig
+    check(len(kept) == 1, f"offline run prepared {len(kept)} samples")
+    return meters, kept[0][0], kept[0][1], seconds, out.getvalue().splitlines()
 
 
 def pose_error(pose, ref):
@@ -1046,6 +1298,111 @@ def phase_stream(card):
     return counts["vpu2"], shapes
 
 
+def _check_offline(tag, ref, meters, data, pairs):
+    """One offline run against the JAX package's: meters within EPE_BAND,
+    estimated poses within the pose bands, the counts of non-ground points
+    and labelled clusters printed beside JAX's and within their bands."""
+    worst = max(abs(meters[k] - ref["meters"][k])
+                for k in offline_meter_names())
+    nonground, clusters = offline_counts(pairs)
+    points = [int((data["time_indice"] == j).sum())
+              for j in range(NUM_FRAMES)]
+    line = (f"[offline {tag}] overall_0 {meters['overall_0']:.5f} dynamic_0 "
+            f"{meters['dynamic_0']:.5f} static_0 {meters['static_0']:.5f} "
+            f"overall_{NUM_FRAMES} {meters[f'overall_{NUM_FRAMES}']:.5f} | "
+            f"worst meter vs JAX {worst:.5f} m | non-ground per frame "
+            f"{nonground} (JAX {ref['nonground']}) of {points} | clusters "
+            f"per pair {clusters} (JAX {ref['clusters']})")
+    if "poses" in ref:
+        errs = []
+        for pose, rows in zip(data["ego_poses"], ref["poses"]):
+            ref_pose = np.eye(4)
+            ref_pose[:3] = rows
+            errs.append(pose_error(pose, ref_pose))
+        gt = [pose_error(p, g) for p, g in zip(data["ego_poses"],
+                                               data["ego_motion_gt"])]
+        line += (f" | poses vs JAX {max(e[0] for e in errs):.5f} m "
+                 f"{max(e[1] for e in errs):.5f} deg, vs GT "
+                 f"{max(e[0] for e in gt):.4f} m {max(e[1] for e in gt):.4f} "
+                 "deg")
+    print(line, flush=True)
+    for k in offline_meter_names():
+        check(np.isfinite(meters[k]) and abs(meters[k] - ref["meters"][k])
+              <= EPE_BAND, f"offline {tag}: meter {k} {meters[k]:.5f} vs JAX "
+              f"{ref['meters'][k]:.5f}")
+    check(points == ref["points"], f"offline {tag}: {points} points a frame, "
+          f"JAX had {ref['points']}")
+    for j, (a, b) in enumerate(zip(nonground, ref["nonground"])):
+        check(abs(a - b) <= NONGROUND_BAND * points[j],
+              f"offline {tag}: frame {j} has {a} non-ground points, JAX {b}")
+    for j, (a, b) in enumerate(zip(clusters, ref["clusters"]), 1):
+        check(abs(a - b) <= CLUSTER_BAND,
+              f"offline {tag}: pair {j} has {a} clusters, JAX {b}")
+    if "poses" in ref:
+        check(max(e[0] for e in errs) <= POSE_BAND_M
+              and max(e[1] for e in errs) <= POSE_BAND_DEG,
+              f"offline {tag}: poses {errs} from JAX")
+
+
+def phase_offline(card):
+    """The port's CLI over one PCAccumulation-format sample a run, on the
+    default device. Returns the launches per kernel of seed 7's runs (GT
+    poses, ``--if_kiss_icp``, GT poses under vpu2) and the launches by
+    shape of the first, for the launch table."""
+    from icpflow_tpu_torch import cli
+    from icpflow_tpu_torch.data import native_loader
+    from icpflow_tpu_torch.data.pca import DatasetPCA
+    check(cli.build_parser().get_default("device") == "cuda",
+          "the CLI does not default to the card")
+    print(f"[offline] npz decoder: {native_loader.decoder()}", flush=True)
+    runs = [(seed, kiss, "auto") for seed in OFFLINE_SEEDS
+            for kiss in (False, True)] + [(SEED, False, "vpu2")]
+    counts, shapes = {}, None
+    for seed, kiss, variant in runs:
+        ego = "kiss" if kiss else "gt"
+        tag = f"seed {seed} {ego}" + ("" if variant == "auto" else " vpu2")
+        timings = []
+        with _nn_variant(variant):
+            _reset_counts()
+            meters, data, pairs, seconds, lines = run_offline(
+                cli, DatasetPCA, offline_config(kiss), seed, kiss,
+                timings=timings)
+            launches, per_kernel, per_shape, plain = _read_counts()
+        check(len([ln for ln in lines if " EPE3D: " in ln])
+              == 6 * (NUM_FRAMES + 1), f"offline {tag}: the report is short")
+        check(not [ln for ln in lines if "WARNING" in ln],
+              f"offline {tag}: pairs overflowed their buckets")
+        _check_offline(tag, JAX_OFFLINE_REFERENCE[seed][ego], meters, data,
+                       pairs)
+        t = timings[0]
+        print(f"[offline {tag}] cli.run {seconds:.2f} s | ms: load "
+              f"{t['load']:.1f} ground {t['ground']:.1f} ego {t['ego']:.1f} "
+              f"cluster {t['cluster']:.1f} | pairs (pad / track / flow): "
+              + ", ".join(f"{p['pad']:.1f} / {p['track']:.1f} / "
+                          f"{p['flow']:.1f}" for p in t["pairs"])
+              + f" | {card}", flush=True)
+        check(launches > 0 and plain == 0,
+              f"offline {tag}: {launches} launches, {plain} plain NN calls")
+        by_shape = ", ".join(f"{k[0]} {k[1]}x{k[2]}x{k[3]}: {c}"
+                             for k, c in sorted(per_shape.items()))
+        print(f"[launches offline {tag}] NN kernel launches {launches} "
+              f"{per_kernel}, plain NN calls {plain} | {by_shape}",
+              flush=True)
+        if kiss:
+            check(per_shape.get(("nn_elementwise_index",) + EXACT_SHAPE, 0)
+                  > 0, f"offline {tag}: the odometry's exact NN ran no kernel")
+        if seed == SEED:
+            counts[ego if variant == "auto" else variant] = per_kernel
+            if shapes is None:
+                shapes = (per_shape, 1)
+    for name in ("nn_sentinel_index", "nn_sentinel_points"):
+        check(counts["vpu2"].get(name, 0) > 0,
+              f"the vpu2 offline run did not launch {name}")
+        check(counts["gt"].get(name, 0) == 0,
+              f"the default offline run launched {name}")
+    return counts, shapes
+
+
 def _record_launches(run):
     """Run ``run()`` with the inputs of every NN launch cloned on the card.
     Returns [(kernel name, src, dst, dst_mask, src_mask | None, (dst
@@ -1167,11 +1524,17 @@ def phase_launch_table(rows, counted):
         with _nn_variant(variant):
             _run_stream(cfg, scans)
 
+    def run_sample():
+        from icpflow_tpu_torch import cli
+        from icpflow_tpu_torch.data.pca import DatasetPCA
+        run_offline(cli, DatasetPCA, offline_config(False), SEED, False)
+
     paths = [("pair", "pair", len(pairs), run_pairs),
              ("stream vpu2", "frame", len(scans) - 1,
               lambda: run_stream("vpu2")),
              ("stream default", "frame", len(scans) - 1,
-              lambda: run_stream("auto"))]
+              lambda: run_stream("auto")),
+             ("offline", "sample", 1, run_sample)]
     for label, unit, units, run in paths:
         rec = _record_launches(run)
         for name, groups in _replay(label, unit, units, rec, counted[label],
@@ -1266,12 +1629,17 @@ def main():
     if "--profile" in sys.argv[1:]:
         phase_profile(card)
         return 0
+    if "--offline" in sys.argv[1:]:
+        phase_offline(card)
+        return 0
     rows = phase_kernels()
     per_kernel, pair_shapes = phase_main_path(card)
     stream_kernel, stream_shapes = phase_stream(card)
+    offline_kernel, offline_shapes = phase_offline(card)
     phase_launch_table(rows, {"pair": pair_shapes,
                               "stream vpu2": stream_shapes["vpu2"],
-                              "stream default": stream_shapes["auto"]})
+                              "stream default": stream_shapes["auto"],
+                              "offline": offline_shapes})
     table = []
     for name, (form, _, rep, _) in KERNELS.items():
         # launches: the frame-pair path's count; the sentinel kernels run
@@ -1279,11 +1647,18 @@ def main():
         path = stream_kernel if form == "sentinel" else per_kernel
         check(path.get(name, 0) > 0,
               f"kernel {name} was not launched by its main path")
+        # one offline sample (seed 7): GT poses, estimated poses, and GT
+        # poses under vpu2, which alone launches the sentinel kernels
+        offline = {run: offline_kernel[run].get(name, 0)
+                   for run in ("gt", "kiss", "vpu2")}
+        check(offline["vpu2" if form == "sentinel" else "gt"] > 0,
+              f"kernel {name} was not launched by the offline path")
         # the row's own numbers are those of its first entry in ``times``:
         # the launch with the most work (the largest bound) that the main
         # paths made of it
         table.append(dict(name=name, route="cuda", source=SOURCE,
                           replaces=rep, launches=path[name],
+                          launches_offline=offline,
                           **rows[name]["times"][0], **rows[name]))
     print(f"[done] {time.time() - t0:.1f} s", flush=True)
     print(card)

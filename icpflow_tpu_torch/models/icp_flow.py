@@ -34,6 +34,22 @@ class FusedPairOutput(NamedTuple):
     lab_dst: torch.Tensor     # (N_dst,) int32
 
 
+def _joint_dbscan(pts: torch.Tensor, valid: torch.Tensor,
+                  cfg: PipelineConfig) -> torch.Tensor:
+    """Config-routed clusterer over one padded cloud: raw-cloud dbscan, or
+    the voxel-dedup form (``cluster_dedup_voxel > 0``) with weighted counts
+    and its fallback to the full cloud. Returns (N,) int32 labels."""
+    kw = dict(eps=cfg.epsilon, min_points=cfg.min_cluster_size,
+              num_clusters=cfg.num_clusters, cell_cap=cfg.cluster_cell_cap,
+              max_iters=cfg.cluster_max_iters,
+              eps_scale_per_m=cfg.eps_scale_per_m, eps_max=cfg.eps_max)
+    if cfg.cluster_dedup_voxel > 0:
+        return _cluster.dbscan_dedup(
+            pts, valid, dedup_voxel=cfg.cluster_dedup_voxel,
+            rep_cap=cfg.cluster_rep_cap, **kw)
+    return _cluster.dbscan(pts, valid, **kw)
+
+
 class _StageClock:
     """Per-stage milliseconds into ``out``: CUDA events on a CUDA device
     (read after one synchronize at the end), host clock on the CPU."""
@@ -86,21 +102,12 @@ class SceneFlowEngine:
         if cfg.use_hdbscan:
             raise NotImplementedError(
                 "use_hdbscan=True: the hdbscan clusterer is not ported to "
-                "icpflow_tpu_torch yet (ROADMAP Queue 1, hdbscan item)")
+                "icpflow_tpu_torch yet (ROADMAP Queue 1 item 3)")
         pts = torch.cat([self._tensor(pts_dst, torch.float32),
                          self._tensor(pts_src_ego, torch.float32)])
         valid = torch.cat([self._tensor(valid_dst, torch.bool),
                            self._tensor(valid_src, torch.bool)])
-        kw = dict(eps=cfg.epsilon, min_points=cfg.min_cluster_size,
-                  num_clusters=cfg.num_clusters, cell_cap=cfg.cluster_cell_cap,
-                  max_iters=cfg.cluster_max_iters,
-                  eps_scale_per_m=cfg.eps_scale_per_m, eps_max=cfg.eps_max)
-        if cfg.cluster_dedup_voxel > 0:
-            labels = _cluster.dbscan_dedup(
-                pts, valid, dedup_voxel=cfg.cluster_dedup_voxel,
-                rep_cap=cfg.cluster_rep_cap, **kw)
-        else:
-            labels = _cluster.dbscan(pts, valid, **kw)
+        labels = _joint_dbscan(pts, valid, cfg)
         n0 = len(pts_dst)
         return labels[:n0], labels[n0:]
 

@@ -20,10 +20,22 @@ depend on the padded capacities while the map never fills (it is deduped
 before it is truncated) and the source never overflows; the script prints
 the fill counts to show that. Needs JAX; the port's machine has none,
 hence the pinned constants. Pass ``--stream`` to run only the stream.
+
+    python3 tests/torch_smoke_reference.py --offline
+
+runs instead ``icpflow_tpu.cli.run`` over the scenes of seeds 7 and 8
+written as PCAccumulation-format samples, each with GT poses and with
+``--if_kiss_icp`` (the odometry at the same cut capacities, fill counts
+printed), exactly as ``chip_smoke.run_offline`` drives the port's CLI, and
+prints what ``chip_smoke.JAX_OFFLINE_REFERENCE`` pins: the meters, the
+non-ground points per frame, the labelled clusters per pair and the
+estimated poses. About 8 minutes on this repository's 8-core CPU test host
+with a warm XLA compilation cache (jax 0.9.0; 55-195 s a run).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -94,10 +106,83 @@ def stream(cfg):
     return out
 
 
+@contextlib.contextmanager
+def ego_fills(cfg, fills):
+    """Append (map fill, registration source points) of every frame the JAX
+    package's odometry registers inside the block to ``fills``."""
+    import jax.numpy as jnp
+    from icpflow_tpu.ops import ego
+    orig = ego.EgoOdometry.register_frame
+
+    def register_frame(self, frame):
+        pose = orig(self, frame)
+        r = np.linalg.norm(frame[:, :3], axis=1)
+        f = frame[(r > cfg.ego_min_range) & (r < cfg.ego_max_range), :3]
+        keep = ego.voxel_downsample_mask(
+            jnp.asarray(f), jnp.ones(len(f), bool),
+            voxel=cfg.ego_voxel_size * 0.5)
+        n_src = int(np.asarray(ego.voxel_downsample_mask(
+            jnp.asarray(f), keep, voxel=cfg.ego_voxel_size * 1.5)).sum())
+        fills.append((int(self._map_valid.sum()), n_src))
+        return pose
+
+    ego.EgoOdometry.register_frame = register_frame
+    try:
+        yield
+    finally:
+        ego.EgoOdometry.register_frame = orig
+
+
+def offline():
+    from icpflow_tpu import cli
+    from icpflow_tpu.config import PipelineConfig
+    from icpflow_tpu.data.pca import DatasetPCA
+    out = {}
+    for seed in chip_smoke.OFFLINE_SEEDS:
+        for kiss in (False, True):
+            cfg = chip_smoke.offline_config(kiss)
+            if kiss:
+                cfg = cfg.replace(**STREAM_CAPACITY)
+            cfg = PipelineConfig(**dataclasses.asdict(cfg))
+            fills = []
+            with ego_fills(cfg, fills):
+                meters, data, pairs, seconds, _ = chip_smoke.run_offline(
+                    cli, DatasetPCA, cfg, seed, kiss)
+            nonground, clusters = chip_smoke.offline_counts(pairs)
+            m = dict(meters={k: meters[k]
+                             for k in chip_smoke.offline_meter_names()},
+                     nonground=nonground, clusters=clusters,
+                     points=[int((data["time_indice"] == j).sum())
+                             for j in range(cfg.num_frames)],
+                     seconds=round(seconds, 1))
+            if kiss:
+                assert all(f < cfg.ego_map_capacity
+                           and n < cfg.ego_src_capacity for f, n in fills)
+                m.update(
+                    poses=[[[float(v) for v in row] for row in pose[:3]]
+                           for pose in data["ego_poses"]],
+                    pose_err_vs_gt=[chip_smoke.pose_error(p, g) for p, g in
+                                    zip(data["ego_poses"],
+                                        data["ego_motion_gt"])],
+                    map_fill=[f for f, _ in fills],
+                    src_points=[n for _, n in fills],
+                    map_capacity=cfg.ego_map_capacity,
+                    src_capacity=cfg.ego_src_capacity)
+            out.setdefault(seed, {})["kiss" if kiss else "gt"] = m
+            print(f"seed {seed} {'kiss' if kiss else 'gt'}: {json.dumps(m)}",
+                  flush=True)
+    return out
+
+
 def main():
     jax.config.update("jax_platforms", "cpu")
     from icpflow_tpu.config import PipelineConfig
 
+    if "--offline" in sys.argv:
+        print(json.dumps({"jax_backend": jax.default_backend(),
+                          "jax": jax.__version__,
+                          "offline_reference": offline()}))
+        return
     cfg = PipelineConfig(**dataclasses.asdict(chip_smoke.bench_config()))
     result = {"jax_backend": jax.default_backend()}
     if "--stream" not in sys.argv:
