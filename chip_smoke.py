@@ -45,8 +45,27 @@ Phases, one line each, any failure ends with a non-zero exit:
    non-ground points per frame and labelled clusters per pair are checked
    against ``JAX_OFFLINE_REFERENCE``; stage milliseconds by CUDA events;
 
-7. launch table: the launches per kernel and (B, N, M) are those phases 4
-   to 6 counted. The paths then run once more with every NN launch's
+7. hdbscan path (``use_hdbscan=True``, the bench configuration): the
+   native library present; the exact kNN mutual-reachability graph over
+   the gap-1 pair's voxel representatives against a float64 brute force
+   (2,048 random rows, within the fp32 rounding of the expanded-form d2)
+   and against the same function on the CPU (indices equal, distances
+   within 1e-6 m); the host copy of the graph timed as hdbscan makes it
+   and as one ``.cpu()`` a tensor; the frame pairs of gaps 1 and 4 through
+   ``run_frame_pair``, twice each (the dedup path, the occupied voxels
+   equal to JAX's, no overflow, NN kernels and no plain NN call), gap 1's
+   joint labels against ``hdbscan`` over the same joint cloud on the CPU
+   (equal on 99% of the points at least); gap 1 on the voxel-hash graph;
+   ``cli.run --if_hdbscan`` over seed 7 with GT poses; a scene past the
+   representative bucket taking the full graph, counted. Checked against
+   ``JAX_HDBSCAN_REFERENCE`` (EPE within 0.005 m, matched pairs and
+   clusters within 1); hdbscan's stage milliseconds and the graph's bound
+   printed;
+
+8. launch table: the launches per kernel and (B, N, M) are those phases 4
+   to 7 counted (phase 7: the hdbscan frame pairs, whose 200 clusters
+   give the matcher other batch sizes). The paths then run once more with
+   every NN launch's
    inputs kept (the same launches, or the run fails), and each is launched
    again alone: valid pairs, kernel milliseconds and bound per kernel and
    (N, M), a pair and a stream frame, ranked by the time lost against the
@@ -65,8 +84,8 @@ table as JSON, and ``{"ok": true, "device": {...}}``.
 ``python3 chip_smoke.py --profile`` instead profiles one warm stream frame
 under each policy with ``torch.profiler`` (device busy and idle share, the
 exact sweep's share) and prints no result line; ``python3 chip_smoke.py
---offline`` runs only the offline path after the build, and prints none
-either.
+--offline`` and ``--hdbscan`` run only the offline or the hdbscan path
+after the build, and print none either.
 """
 
 from __future__ import annotations
@@ -282,6 +301,46 @@ JAX_OFFLINE_REFERENCE = {7: {'gt': {'meters': {'overall_0': 0.000335483899107202
                           -9.698197573015932e-06, 0.40000107884407043],
                          [6.5784452090156265e-06, 9.694539585325401e-06,
                           1.000000238418579, 0.0020787965040653944]]]}}}
+# The JAX package with ``use_hdbscan=True`` at the bench configuration on
+# the same inputs (XLA:CPU, jax 0.9.0; `python3 tests/torch_smoke_reference.py
+# --hdbscan`): the frame pairs of gaps 1 and 4 (exact kNN graph over the
+# voxel representatives; ``n_unique``: occupied 0.15 m voxels of the joint
+# cloud, under the 32,768-slot bucket), gap 1 on the voxel-hash graph, and
+# ``cli.run --if_hdbscan`` over seed 7 with GT poses. The cluster cap (200)
+# binds: hdbscan splits the static scene into many small clusters.
+JAX_HDBSCAN_REFERENCE = {1: {'epe3d': 0.0004226506862323731,
+                             'epe3d_dynamic': 0.004312640987336636,
+                             'matched': 200,
+                             'clusters': 200,
+                             'n_unique': 30842},
+                         4: {'epe3d': 0.0002953319053631276,
+                             'epe3d_dynamic': 0.002881204942241311,
+                             'matched': 199,
+                             'clusters': 200,
+                             'n_unique': 30871},
+                         'voxel_hash': {'epe3d': 0.0004226506862323731,
+                                        'epe3d_dynamic': 0.004312640987336636,
+                                        'matched': 165,
+                                        'clusters': 166},
+                         'offline': {'meters': {'overall_0': 0.0003354838991072029,
+                                                'dynamic_0': 0.003749481402337551,
+                                                'static_0': 0.0,
+                                                'overall_1': 0.0003254579787608236,
+                                                'dynamic_1': 0.003747359151020646,
+                                                'static_1': 0.0,
+                                                'overall_2': 0.00028625759296119213,
+                                                'dynamic_2': 0.0032036106567829847,
+                                                'static_2': 0.0,
+                                                'overall_3': 0.0002889338356908411,
+                                                'dynamic_3': 0.0031932673882693052,
+                                                'static_3': 0.0,
+                                                'overall_4': 0.0004410862165968865,
+                                                'dynamic_4': 0.0048364694230258465,
+                                                'static_4': 0.0,
+                                                'overall_5': 0.0003354838991072029},
+                                     'points': [90203, 90482, 90754, 90890, 90992],
+                                     'nonground': [63868, 64053, 64216, 64311, 64364],
+                                     'clusters': [200, 200, 200, 200]}}
 # documented knife-edge band of the accuracy guardrails: sub-mm NN
 # differences (here: the elementwise or sentinel form on the card vs the
 # expanded form everywhere on XLA:CPU) flip borderline ICP basins
@@ -490,6 +549,18 @@ def pose_error(pose, ref):
     return float(np.linalg.norm(pose[:3, 3] - ref[:3, 3])), float(ang)
 
 
+def hdbscan_config(exact=True):
+    """The bench configuration with the hdbscan clusterer (the exact kNN
+    graph over voxel representatives, or the voxel-hash graph)."""
+    return bench_config().replace(use_hdbscan=True, hdbscan_exact=exact)
+
+
+def pair_clusters(labels_src, labels_dst):
+    """Labelled clusters of a frame pair's joint labels."""
+    lab = np.concatenate([labels_src, labels_dst])
+    return int(len(np.unique(lab[lab >= 0])))
+
+
 def pair_metrics(flow, gt, dyn, pairs):
     err = np.linalg.norm(flow - gt, axis=-1)
     return dict(epe3d=float(err.mean()),
@@ -577,6 +648,18 @@ def _tie_inputs(seed):
     dst[0, 9] = (0.0, 1.0, 0.0)
     return (src.astype(np.float32), dst.astype(np.float32),
             np.ones((2, 300), bool))
+
+
+def _timed(fn):
+    """(fn(), its milliseconds by CUDA events around it)."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    z = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    z.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(z)
 
 
 def _time_ms(fn, iters=10):
@@ -1298,7 +1381,7 @@ def phase_stream(card):
     return counts["vpu2"], shapes
 
 
-def _check_offline(tag, ref, meters, data, pairs):
+def _check_offline(tag, ref, meters, data, pairs, cluster_band=CLUSTER_BAND):
     """One offline run against the JAX package's: meters within EPE_BAND,
     estimated poses within the pose bands, the counts of non-ground points
     and labelled clusters printed beside JAX's and within their bands."""
@@ -1336,7 +1419,7 @@ def _check_offline(tag, ref, meters, data, pairs):
         check(abs(a - b) <= NONGROUND_BAND * points[j],
               f"offline {tag}: frame {j} has {a} non-ground points, JAX {b}")
     for j, (a, b) in enumerate(zip(clusters, ref["clusters"]), 1):
-        check(abs(a - b) <= CLUSTER_BAND,
+        check(abs(a - b) <= cluster_band,
               f"offline {tag}: pair {j} has {a} clusters, JAX {b}")
     if "poses" in ref:
         check(max(e[0] for e in errs) <= POSE_BAND_M
@@ -1401,6 +1484,359 @@ def phase_offline(card):
         check(counts["gt"].get(name, 0) == 0,
               f"the default offline run launched {name}")
     return counts, shapes
+
+
+HDBSCAN_SUBSET = 2048       # src rows held against a float64 brute force
+HDBSCAN_CPU_REPS = 8192     # representatives held against the CPU version
+# the fp32 expanded-form d2 of (p, q) is within 16 u (|p|^2 + |q|^2) of the
+# true d2 (u = 2^-24; ~15 roundings of terms no larger than that sum):
+# ~1e-3 m^2 at 30 m from the origin, where a neighbour's d2 is 0.02-0.09
+D2_ROUNDING = 16 * 2.0 ** -24
+
+
+# lane-operations a (point, candidate) pair of hdbscan's graph needs: nine
+# for d2 (three multiplies and two adds for p.q, one multiply by -2, two
+# adds of the norms and the exclusion select; the voxel-hash graph's direct
+# form: three subtracts, three multiplies, two adds and a square root) and
+# one compare of the top-k merge against the running k-th
+GRAPH_OPS_PER_PAIR = 10
+
+
+def _graph_bound(pairs, nbytes):
+    """(bound ms, what bounds it) of hdbscan's graph: the larger of its
+    lane-operations at the card's peak FP32 rate (no FMA) and its bytes,
+    inputs read once and outputs written once, at the memory rate."""
+    from icpflow_tpu_torch.ops.cuda import nn_kernel
+    ops = pairs * GRAPH_OPS_PER_PAIR / nn_kernel.FP32_LANE_OPS_PER_S * 1e3
+    io = nbytes / nn_kernel.HBM_BYTES_PER_S * 1e3
+    return max(ops, io), "operations" if ops >= io else "bytes"
+
+
+def _joint_cloud(engine, src, dst):
+    """The padded joint cloud that ``cluster_joint`` clusters: dst, then
+    src, each padded to its bucket as ``run_frame_pair`` pads it. Returns
+    (points, valid, dst's bucket)."""
+    import torch
+    (pd, vd), (ps, vs) = engine.pad_cloud(dst), engine.pad_cloud(src)
+    return (torch.as_tensor(np.concatenate([pd, ps]), device=engine.device),
+            torch.as_tensor(np.concatenate([vd, vs]), device=engine.device),
+            len(pd))
+
+
+def _graph_vs_float64(xyz, valid, mult, k, core, edge_dst, rows):
+    """The weighted exact graph of ``rows`` against a float64 brute force
+    on the host. Each row's tolerance is twice the fp32 rounding of its
+    expanded-form d2, ``e = 2 * D2_ROUNDING * (|p|^2 + max |q|^2)`` over its
+    k + 1 nearest: the squared core distance must lie within e of the
+    float64 one, and an edge may differ from the float64 k nearest only
+    where its float64 d2 lies within e of the k-th. Returns (worst core
+    error m, worst core error / tolerance in d2, rows whose edge set
+    differs, rows whose difference is not such a near-tie, largest e)."""
+    vidx = np.flatnonzero(valid)
+    q = xyz[vidx].astype(np.float64)
+    qsq = (q * q).sum(1)
+    worst = worst_share = e_max = 0.0
+    differ = bad = 0
+    for r0 in range(0, len(rows), 256):
+        r = rows[r0:r0 + 256]
+        p = xyz[r].astype(np.float64)
+        d2 = ((p[:, None, :] - q[None]) ** 2).sum(-1)
+        d2[np.arange(len(r)), np.searchsorted(vidx, r)] = np.inf    # self
+        o = np.argsort(d2, axis=1, kind="stable")[:, :k + 1]
+        od2 = np.take_along_axis(d2, o, axis=1)
+        e = 2 * D2_ROUNDING * ((p * p).sum(1) + qsq[o].max(1))
+        e_max = max(e_max, float(e.max()))
+        cum = (mult[r] - 1)[:, None] + np.cumsum(mult[vidx[o[:, :k]]], 1)
+        first = np.argmax(cum >= k, axis=1)
+        want = np.sqrt(od2[np.arange(len(r)), first])
+        want = np.where(mult[r] - 1 >= k, 0.0, want)
+        got = core[r].astype(np.float64)
+        worst = max(worst, float(np.abs(got - want).max()))
+        worst_share = max(worst_share,
+                          float((np.abs(got ** 2 - want ** 2) / e).max()))
+        for i, row in enumerate(r):
+            have = set(edge_dst[row].tolist())
+            ref = set(vidx[o[i, :k]].tolist())
+            if have == ref:
+                continue
+            differ += 1
+            gap = [abs(d2[i, np.searchsorted(vidx, j)] - od2[i, k - 1])
+                   for j in have ^ ref]
+            bad += max(gap) > e[i]
+    return worst, worst_share, differ, bad, e_max
+
+
+def _check_graph(engine, pair):
+    """(b): the exact kNN graph over the gap-1 pair's representatives on
+    the card, against a float64 brute force on a random subset of its src
+    rows and against the same function on the CPU (the first
+    ``HDBSCAN_CPU_REPS`` representatives); its time by CUDA events. Then
+    the host copy that ``hdbscan`` makes of the graph and the other arrays
+    its host stages read: one packed copy (``hdbscan._fetch``) against one
+    ``.cpu()`` a tensor and against copies into pinned memory with one
+    synchronize, host clock included."""
+    import torch
+    from icpflow_tpu_torch.ops import cluster, hdbscan
+    cfg = engine.cfg
+    gap, src, dst = pair[:3]
+    pts, valid, _ = _joint_cloud(engine, src, dst)
+    rx, rv, rm, point_rep, n_unique = cluster.voxel_dedup_compact(
+        pts, valid, voxel=cfg.hdbscan_dedup_voxel, cap=cfg.hdbscan_rep_cap)
+    k = min(cfg.min_cluster_size, 30)
+    info = {}
+
+    def graph():
+        return cluster.exact_knn_mutual_reachability(rx, rv, rm, k=k,
+                                                     info=info)
+
+    core, ed, ew = graph()
+    ms = _time_ms(graph, iters=3)
+    xyz_h, valid_h, mult_h = (t.cpu().numpy() for t in (rx, rv, rm))
+    rows = np.sort(np.random.default_rng(SEED).choice(
+        np.flatnonzero(valid_h), HDBSCAN_SUBSET, replace=False))
+    worst, share, differ, bad, e_max = _graph_vs_float64(
+        xyz_h, valid_h, mult_h, k, core.cpu().numpy(), ed.cpu().numpy(),
+        rows)
+    sub = [t[:HDBSCAN_CPU_REPS] for t in (rx, rv, rm)]
+    card = cluster.exact_knn_mutual_reachability(*sub, k=k)
+    host = cluster.exact_knn_mutual_reachability(*[t.cpu() for t in sub],
+                                                 k=k)
+    cpu_err = max(float((a.cpu() - b).abs().max())
+                  for a, b in ((card[0], host[0]), (card[2], host[2])))
+    cpu_idx = int((card[1].cpu() != host[1]).sum())
+    valid_pairs = float(n_unique) * (n_unique - 1)
+    n = rx.shape[0]       # xyz, valid, mult in; core, edge_dst, edge_w out
+    bound, by = _graph_bound(valid_pairs, n * (12 + 1 + 8 + 4 + 8 * k))
+    print(f"[hdbscan graph] gap {gap}: {n_unique} representatives of "
+          f"{int(valid.sum())} points, k {k} | {ms:.2f} ms ({info['blocks']} "
+          f"blocks; top-k route: {info['tie_rows']} of {info['rows']} rows "
+          f"re-sorted whole for a k-th / (k+1)-th tie) | {valid_pairs:.4g} "
+          f"valid pairs, bound {bound:.4f} ms ({by}), share "
+          f"{bound / ms:.4f} | vs float64 on {len(rows)} rows: core max err "
+          f"{worst:.3g} m ({share:.3f} of the fp32 rounding bound, at most "
+          f"{e_max:.3g} m^2), {differ} edge sets differ ({bad} beyond a "
+          f"near-tie within that bound) | vs the CPU on {HDBSCAN_CPU_REPS} "
+          f"representatives: max err {cpu_err:.3g} m, {cpu_idx} indices "
+          "differ", flush=True)
+    check(share <= 1.0, f"hdbscan graph: core {worst:.3g} m from float64, "
+          f"{share:.3f} of the fp32 rounding bound")
+    check(bad == 0, f"hdbscan graph: {bad} edge sets differ from float64 "
+          "beyond a near-tie")
+    # the same rounded fp32 operations on both: indices equal, distances
+    # within a few ulps (6e-8 m measured)
+    check(cpu_err <= 1e-6 and cpu_idx == 0,
+          f"hdbscan graph: the card and the CPU differ ({cpu_err:.3g} m, "
+          f"{cpu_idx} indices)")
+
+    arrays = hdbscan.compress_edges(ed, ew) + (
+        rm.to(torch.int32), point_rep.to(torch.int32), rv, valid)
+    mb = sum(t.numel() * t.element_size() for t in arrays) / 1e6
+
+    def pinned():
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in arrays]
+        for h, t in zip(host, arrays):
+            h.copy_(t, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+        return [h.numpy() for h in host]
+
+    packed = _time_ms(lambda: hdbscan._fetch(*arrays), iters=20)
+    each = _time_ms(lambda: [t.cpu().numpy() for t in arrays], iters=20)
+    pin = _time_ms(pinned, iters=20)
+    same = all(np.array_equal(a, b) for a, b in
+               zip(hdbscan._fetch(*arrays), pinned()))
+    print(f"[hdbscan fetch] gap {gap}: {mb:.3f} MB in {len(arrays)} arrays "
+          f"| one packed copy {packed:.3f} ms, one .cpu() a tensor "
+          f"{each:.3f} ms, pinned copies and one synchronize {pin:.3f} ms "
+          f"| equal {same}", flush=True)
+    check(same, "hdbscan fetch: the pinned copies differ from _fetch's")
+
+
+def _check_labels(engine, pair, out):
+    """A frame pair's joint labels from the card (``run_frame_pair``)
+    against ``hdbscan`` over the same joint cloud on the CPU: equal on at
+    least 99% of the points. The two graphs agree on every index and within
+    a few ulps in distance (``_check_graph``), the f16 fetch absorbs most
+    of that, and a near-tie in the spanning tree may still move a few
+    fringe points."""
+    from icpflow_tpu_torch.ops import hdbscan
+    gap, src, dst = pair[:3]
+    pts, valid, nd = _joint_cloud(engine, src, dst)
+    host, ms = _host_timed(lambda: hdbscan.hdbscan(pts.cpu(), valid.cpu(),
+                                                   engine.cfg))
+    want = np.concatenate([host[:len(dst)], host[nd:nd + len(src)]])
+    got = np.concatenate([out.labels_dst, out.labels_src])
+    share = float((got == want).mean())
+    clusters = pair_clusters(out.labels_src, out.labels_dst)
+    print(f"[hdbscan labels] gap {gap}: the card's joint labels equal the "
+          f"CPU's on {share:.6f} of {len(got)} points "
+          f"({int((got != want).sum())} differ) | clusters card {clusters} "
+          f"CPU {int(want.max()) + 1} | CPU hdbscan {ms:.0f} ms", flush=True)
+    check(share >= 0.99, f"hdbscan gap {gap}: the card's labels equal the "
+          f"CPU's on {share:.4f} of the points")
+
+
+def _host_timed(fn):
+    """(fn(), its milliseconds by the host clock)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _check_hdbscan_pair(tag, out, gt, dyn, ref):
+    """One hdbscan frame pair against GT and the JAX package's numbers."""
+    check(out.flow.shape == gt.shape and bool(np.isfinite(out.flow).all()),
+          f"hdbscan {tag}: flow shape {out.flow.shape} or non-finite")
+    m = pair_metrics(out.flow, gt, dyn, out.pairs)
+    clusters = pair_clusters(out.labels_src, out.labels_dst)
+    for key in ("epe3d", "epe3d_dynamic"):
+        check(abs(m[key] - ref[key]) <= EPE_BAND,
+              f"hdbscan {tag} {key} {m[key]:.5f} vs JAX {ref[key]:.5f}")
+    check(abs(m["matched"] - ref["matched"]) <= MATCHED_BAND,
+          f"hdbscan {tag} matched {m['matched']} vs JAX {ref['matched']}")
+    check(abs(clusters - ref["clusters"]) <= 1,
+          f"hdbscan {tag} clusters {clusters} vs JAX {ref['clusters']}")
+    return m, clusters
+
+
+def _stage_ms(info):
+    return " ".join(f"{k} {v:.1f}" for k, v in info["ms"].items())
+
+
+def phase_hdbscan(card):
+    """``use_hdbscan=True`` on the card: (a) the native library, (b) the
+    exact graph, (c) the frame pairs through ``run_frame_pair``, twice
+    each, (d) gap 1 on the voxel-hash graph, (e) ``cli.run --if_hdbscan``
+    over seed 7 with GT poses, (f) a scene past the representative bucket.
+    Returns the launches per kernel of (c) and, for the launch table, its
+    launches by shape."""
+    import torch
+    from icpflow_tpu_torch import SceneFlowEngine, cli, run_frame_pair
+    from icpflow_tpu_torch.data.native_loader import get_lib
+    from icpflow_tpu_torch.data.pca import DatasetPCA
+    from icpflow_tpu_torch.ops import hdbscan
+    ref = JAX_HDBSCAN_REFERENCE
+    lib = get_lib()
+    check(lib is not None and hasattr(lib, "ifh_hdbscan_labels_weighted"),
+          "hdbscan: the native library or ifh_hdbscan_labels_weighted is "
+          "missing (no silent DBSCAN fallback here)")
+    engine = SceneFlowEngine(hdbscan_config())
+    pairs = scene_pairs(engine.cfg)
+    _check_graph(engine, pairs[0])
+
+    overflows = hdbscan.DEDUP_OVERFLOWS
+    _reset_counts()
+    runs = []
+    for gap, src, dst, gt, dyn, tf in pairs:
+        for _ in range(2):
+            timings = {}
+            out, timings["total"] = _timed(lambda: run_frame_pair(
+                engine, src, dst, translation_frame=tf, timings=timings))
+            runs.append((gap, out, dict(engine.cluster_info), timings))
+    launches, per_kernel, per_shape, plain = _read_counts()
+    check(launches > 0 and plain == 0, f"hdbscan pairs: {launches} NN "
+          f"launches, {plain} plain NN calls")
+    check(hdbscan.DEDUP_OVERFLOWS == overflows,
+          "hdbscan pairs overflowed the representative bucket")
+    for gap, src, dst, gt, dyn, tf in pairs:
+        (_, first, _, cold), (_, out, info, w) = [r for r in runs
+                                                  if r[0] == gap]
+        m, clusters = _check_hdbscan_pair(f"gap {gap}", out, gt, dyn,
+                                          ref[gap])
+        same = all(np.array_equal(a, b) for a, b in zip(first[:5], out[:5]))
+        print(f"[hdbscan] gap {gap}: path {info['path']} n_unique "
+              f"{info['n_unique']} (JAX {ref[gap]['n_unique']}) | EPE3D "
+              f"{m['epe3d']:.5f} (JAX {ref[gap]['epe3d']:.5f}) dyn "
+              f"{m['epe3d_dynamic']:.5f} (JAX "
+              f"{ref[gap]['epe3d_dynamic']:.5f}) | matched {m['matched']} "
+              f"(JAX {ref[gap]['matched']}) clusters {clusters} (JAX "
+              f"{ref[gap]['clusters']}) | runs identical {same} | hdbscan "
+              f"ms: {_stage_ms(info)}, graph share of the pair "
+              f"{info['ms']['graph'] / w['total']:.3f} | warm ms: cluster "
+              f"{w['cluster']:.1f} "
+              f"track {w['track']:.1f} flow {w['flow']:.1f} total "
+              f"{w['total']:.1f} (cold total {cold['total']:.1f}) | {card}",
+              flush=True)
+        check(info["path"] == "dedup", f"hdbscan gap {gap}: path "
+              f"{info['path']}")
+        check(info["n_unique"] == ref[gap]["n_unique"],
+              f"hdbscan gap {gap}: {info['n_unique']} voxels, JAX "
+              f"{ref[gap]['n_unique']}")
+    print(f"[hdbscan] NN kernel launches {launches} {per_kernel}, plain NN "
+          f"calls {plain}", flush=True)
+    _check_labels(engine, pairs[0], [r[1] for r in runs if r[0] == GAPS[0]][1])
+
+    # (d) the voxel-hash graph
+    gap, src, dst, gt, dyn, tf = pairs[0]
+    vh = SceneFlowEngine(hdbscan_config(exact=False))
+    for _ in range(2):
+        timings = {}
+        out = run_frame_pair(vh, src, dst, translation_frame=tf,
+                             timings=timings)
+    info = vh.cluster_info
+    check(info["path"] == "voxel_hash", f"voxel-hash path {info['path']}")
+    m, clusters = _check_hdbscan_pair("voxel_hash", out, gt, dyn,
+                                      ref["voxel_hash"])
+    r = ref["voxel_hash"]
+    n = 2 * engine.cfg.max_points_scene
+    vh_bound, vh_by = _graph_bound(info["graph"]["candidates"],
+                                   n * (12 + 1 + 4 + 8 * 3 * 8))
+    vh_ms = info["ms"]["graph"]
+    print(f"[hdbscan voxel_hash] gap {gap}: EPE3D {m['epe3d']:.5f} (JAX "
+          f"{r['epe3d']:.5f}) dyn {m['epe3d_dynamic']:.5f} (JAX "
+          f"{r['epe3d_dynamic']:.5f}) | matched {m['matched']} (JAX "
+          f"{r['matched']}) clusters {clusters} (JAX {r['clusters']}) | "
+          f"hdbscan ms (warm): {_stage_ms(info)} | graph: "
+          f"{info['graph']['candidates']:.4g} usable candidate pairs, bound "
+          f"{vh_bound:.4f} ms ({vh_by}), share {vh_bound / vh_ms:.4f} | "
+          f"cluster {timings['cluster']:.1f} of the pair's "
+          f"{sum(timings.values()):.1f} ms | {card}", flush=True)
+
+    # (e) the offline path
+    timings = []
+    overflows = hdbscan.DEDUP_OVERFLOWS
+    _reset_counts()
+    meters, data, pairs_off, seconds, lines = run_offline(
+        cli, DatasetPCA, offline_config(False).replace(use_hdbscan=True),
+        SEED, False, timings=timings)
+    launches, _, _, plain = _read_counts()
+    check(len([ln for ln in lines if " EPE3D: " in ln])
+          == 6 * (NUM_FRAMES + 1), "offline hdbscan: the report is short")
+    _check_offline("seed 7 gt hdbscan", ref["offline"], meters, data,
+                   pairs_off, cluster_band=1)
+    t = timings[0]
+    print(f"[offline seed 7 gt hdbscan] cli.run {seconds:.2f} s | ms: load "
+          f"{t['load']:.1f} ground {t['ground']:.1f} ego {t['ego']:.1f} "
+          f"cluster {t['cluster']:.1f} | dedup overflows "
+          f"{hdbscan.DEDUP_OVERFLOWS - overflows} | NN kernel launches "
+          f"{launches}, plain NN calls {plain} | {card}", flush=True)
+    check(launches > 0 and plain == 0, f"offline hdbscan: {launches} "
+          f"launches, {plain} plain NN calls")
+
+    # (f) a scene with more occupied voxels than the bucket: the full graph
+    rng = np.random.default_rng(SEED)
+    pts = np.concatenate([rng.uniform(-6.0, 6.0, (3000, 3)),
+                          rng.normal(scale=0.1, size=(600, 3))]).astype(
+                              np.float32)
+    cfg = hdbscan_config().replace(hdbscan_rep_cap=64)
+    before, info = hdbscan.DEDUP_OVERFLOWS, {}
+    lab = hdbscan.hdbscan(torch.as_tensor(pts, device=engine.device),
+                          torch.ones(len(pts), dtype=torch.bool,
+                                     device=engine.device), cfg, info=info)
+    counted = hdbscan.DEDUP_OVERFLOWS - before
+    host = hdbscan.hdbscan(torch.as_tensor(pts), torch.ones(len(pts),
+                                                            dtype=torch.bool),
+                           cfg)
+    print(f"[hdbscan overflow] {len(pts)} points, {info['n_unique']} voxels "
+          f"> bucket 64: path {info['path']}, overflows counted {counted}, "
+          f"clusters {int(lab.max()) + 1}, labels equal to the CPU's "
+          f"{bool(np.array_equal(lab, host))}", flush=True)
+    check(info["path"] == "full" and counted == 1,
+          f"hdbscan overflow: path {info['path']}, {counted} overflows")
+    check(np.array_equal(lab, host), "hdbscan overflow: the card's labels "
+          "differ from the CPU's")
+    # every pair ran twice: the counts are those of 2 * len(pairs) pairs
+    return per_kernel, (per_shape, 2 * len(pairs))
 
 
 def _record_launches(run):
@@ -1512,13 +1948,14 @@ def phase_launch_table(rows, counted):
     from icpflow_tpu_torch.ops.cuda import nn_kernel
     cfg = bench_config()
     engine = SceneFlowEngine(cfg)
+    hdb = SceneFlowEngine(hdbscan_config())
     pairs = scene_pairs(cfg)
     scans = stream_frames()[0]
     reps = {}
 
-    def run_pairs():
+    def run_pairs(eng=engine):
         for _, src, dst, _, _, tf in pairs:
-            run_frame_pair(engine, src, dst, translation_frame=tf)
+            run_frame_pair(eng, src, dst, translation_frame=tf)
 
     def run_stream(variant):
         with _nn_variant(variant):
@@ -1534,7 +1971,8 @@ def phase_launch_table(rows, counted):
               lambda: run_stream("vpu2")),
              ("stream default", "frame", len(scans) - 1,
               lambda: run_stream("auto")),
-             ("offline", "sample", 1, run_sample)]
+             ("offline", "sample", 1, run_sample),
+             ("hdbscan pair", "pair", len(pairs), lambda: run_pairs(hdb))]
     for label, unit, units, run in paths:
         rec = _record_launches(run)
         for name, groups in _replay(label, unit, units, rec, counted[label],
@@ -1632,14 +2070,19 @@ def main():
     if "--offline" in sys.argv[1:]:
         phase_offline(card)
         return 0
+    if "--hdbscan" in sys.argv[1:]:
+        phase_hdbscan(card)
+        return 0
     rows = phase_kernels()
     per_kernel, pair_shapes = phase_main_path(card)
     stream_kernel, stream_shapes = phase_stream(card)
     offline_kernel, offline_shapes = phase_offline(card)
+    hdbscan_kernel, hdbscan_shapes = phase_hdbscan(card)
     phase_launch_table(rows, {"pair": pair_shapes,
                               "stream vpu2": stream_shapes["vpu2"],
                               "stream default": stream_shapes["auto"],
-                              "offline": offline_shapes})
+                              "offline": offline_shapes,
+                              "hdbscan pair": hdbscan_shapes})
     table = []
     for name, (form, _, rep, _) in KERNELS.items():
         # launches: the frame-pair path's count; the sentinel kernels run
@@ -1659,6 +2102,7 @@ def main():
         table.append(dict(name=name, route="cuda", source=SOURCE,
                           replaces=rep, launches=path[name],
                           launches_offline=offline,
+                          launches_hdbscan=hdbscan_kernel.get(name, 0),
                           **rows[name]["times"][0], **rows[name]))
     print(f"[done] {time.time() - t0:.1f} s", flush=True)
     print(card)

@@ -25,11 +25,11 @@ from typing import Optional
 import numpy as np
 
 from .config import PRESETS, PipelineConfig
-from .device import DEFAULT_DEVICE
+from .device import DEFAULT_DEVICE, StageClock
 from .metrics import (CATEGORIES, compute_epe, crop_for_eval, make_meters,
                       meters_from_state, meters_to_state, report,
                       update_metrics)
-from .models.icp_flow import SceneFlowEngine, _StageClock
+from .models.icp_flow import SceneFlowEngine
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -136,10 +136,6 @@ def run(args, timings: Optional[list] = None) -> dict:
         raise NotImplementedError(
             "--dp / --cp above 1: the sharded step is not ported to "
             "icpflow_tpu_torch yet (ROADMAP Queue 1 item 4)")
-    if cfg.use_hdbscan:
-        raise NotImplementedError(
-            "--if_hdbscan: the hdbscan clusterer is not ported to "
-            "icpflow_tpu_torch yet (ROADMAP Queue 1 item 3)")
     engine = SceneFlowEngine(cfg, device=args.device)
 
     if args.dataset in ("waymo", "nuscene"):
@@ -194,7 +190,7 @@ def run(args, timings: Optional[list] = None) -> dict:
 
         for j, pair in enumerate(pairs, 1):
             pair_ms = None if timings is None else {}
-            clock = _StageClock(pair_ms, engine.device)
+            clock = StageClock(pair_ms, engine.device)
             clock.mark("pad")
             # per-pair dynamic search radius, main.py:200
             tf = max(cfg.speed * j,

@@ -40,8 +40,10 @@ class PipelineConfig:
     # adaptive clustering: eps_i = clip(eps + scale * range_i, eps, eps_max)
     eps_scale_per_m: float = 0.0
     eps_max: float = 0.8
-    # hdbscan knobs (the hdbscan clusterer is not ported yet; kept so that
-    # configurations round-trip between packages)
+    # hdbscan (use_hdbscan=True -> ops/hdbscan.py; field meanings as in the
+    # reference's config.py). hdbscan_knn_recall changes nothing here: the
+    # port's kNN graph is exact. hdbscan_fetch_f16 rounds the edge weights
+    # the spanning tree sees to f16, so it changes labels.
     hdbscan_edges: int = 8
     hdbscan_cells: tuple = (0.35, 1.0, 3.0)
     hdbscan_cell_cap: int = 192

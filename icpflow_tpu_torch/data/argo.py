@@ -92,9 +92,9 @@ class DatasetArgo(PrefetchIterMixin):
         }
 
     def _prepare(self, data, clock=None):
-        from ..models.icp_flow import _StageClock
+        from ..device import StageClock
         from .pca import DatasetPCA
-        clock = clock or _StageClock(self.timings, self.device)
+        clock = clock or StageClock(self.timings, self.device)
         data["ego_poses"] = data["ego_motion_gt"]
         # AV2 exports are already ground-filtered; all points non-ground
         # (dataset_argo.py:140)

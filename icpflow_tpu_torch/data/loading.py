@@ -48,7 +48,7 @@ class PrefetchIterMixin:
         """Yield (global_idx, data, pairs) with host decode prefetched.
         ``self.timings``, when a dict, receives the ``load`` milliseconds
         of each sample beside the stages ``_prepare`` times."""
-        from ..models.icp_flow import _StageClock
+        from ..device import StageClock
         from .native_loader import PrefetchPool
 
         if indices is None:
@@ -58,7 +58,7 @@ class PrefetchIterMixin:
         pool = PrefetchPool(paths, workers=workers, depth=depth)
         try:
             for k in indices:
-                clock = _StageClock(self.timings, self.device)
+                clock = StageClock(self.timings, self.device)
                 clock.mark("load")
                 d = next(pool, None)
                 if d is None:

@@ -24,8 +24,8 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
-from ..device import DEFAULT_DEVICE, resolve_device
-from ..models.icp_flow import _joint_dbscan, _StageClock
+from ..device import DEFAULT_DEVICE, StageClock, resolve_device
+from ..models.icp_flow import joint_labels
 from ..ops.segments import GROUND_LABEL
 from .loading import PrefetchIterMixin
 
@@ -173,10 +173,6 @@ class DatasetPCA(PrefetchIterMixin):
     # -- joint two-frame clustering (dataset_pca.py:164-201) ---------------
     def cluster_pairs(self, data, ego_poses, nonground):
         cfg = self.cfg
-        if cfg.use_hdbscan:
-            raise NotImplementedError(
-                "use_hdbscan=True: the hdbscan clusterer is not ported to "
-                "icpflow_tpu_torch yet (ROADMAP Queue 1 item 3)")
         ti = data["time_indice"]
         pts0 = data["raw_points"][ti == 0, :3]
         ng0 = nonground[ti == 0]
@@ -191,7 +187,7 @@ class DatasetPCA(PrefetchIterMixin):
             pts_p, valid_p = _pad(both, 2 * cfg.max_points_scene)
             ngp = np.zeros(2 * cfg.max_points_scene, bool)
             ngp[: len(both)] = ng
-            lab = _joint_dbscan(
+            lab = joint_labels(
                 torch.as_tensor(pts_p).to(self.device),
                 torch.as_tensor(valid_p & ngp).to(self.device),
                 cfg).cpu().numpy()[: len(both)]
@@ -206,7 +202,7 @@ class DatasetPCA(PrefetchIterMixin):
         return out
 
     def _prepare(self, data, clock=None):
-        clock = clock or _StageClock(self.timings, self.device)
+        clock = clock or StageClock(self.timings, self.device)
         clock.mark("ground")
         nonground = self.ground_removal(data)
         clock.mark("ego")

@@ -1,23 +1,24 @@
 """SceneFlowEngine: clustering -> segments -> two-stage matching -> flow.
 
 Port of ``icpflow_tpu/models/icp_flow.py`` for one explicit torch device.
-``run_pair`` is the main path: joint DBSCAN over dst u src, segment
+``run_pair`` is the main path: joint clustering over dst u src (DBSCAN,
+or hdbscan with ``use_hdbscan``), segment
 extraction, the matcher, and flow assembly, run eagerly on ``device``.
 """
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..config import PipelineConfig
-from ..device import DEFAULT_DEVICE, resolve_device
+from ..device import DEFAULT_DEVICE, StageClock, resolve_device
 from ..flow import flow_from_transforms, flow_with_identity_override
 from ..match.matcher import MatchResult, match_frame_pair
 from ..ops import cluster as _cluster
+from ..ops.hdbscan import hdbscan
 from ..ops.segments import SegmentBatch, extract_segments
 
 
@@ -34,11 +35,20 @@ class FusedPairOutput(NamedTuple):
     lab_dst: torch.Tensor     # (N_dst,) int32
 
 
-def _joint_dbscan(pts: torch.Tensor, valid: torch.Tensor,
-                  cfg: PipelineConfig) -> torch.Tensor:
-    """Config-routed clusterer over one padded cloud: raw-cloud dbscan, or
-    the voxel-dedup form (``cluster_dedup_voxel > 0``) with weighted counts
-    and its fallback to the full cloud. Returns (N,) int32 labels."""
+def joint_labels(pts: torch.Tensor, valid: torch.Tensor,
+                 cfg: PipelineConfig, info: Optional[dict] = None,
+                 timed: bool = False) -> torch.Tensor:
+    """Config-routed clusterer over one padded cloud. Returns (N,) int32
+    labels on the cloud's device.
+
+    ``use_hdbscan``: ``ops.hdbscan.hdbscan`` (``info``, when given, receives
+    its path and voxel count, and with ``timed`` its stage milliseconds).
+    Otherwise raw-cloud
+    dbscan, or its voxel-dedup form (``cluster_dedup_voxel > 0``) with
+    weighted counts and its fallback to the full cloud."""
+    if cfg.use_hdbscan:
+        lab = hdbscan(pts, valid, cfg, info=info, timed=timed)
+        return torch.as_tensor(lab).to(pts.device)
     kw = dict(eps=cfg.epsilon, min_points=cfg.min_cluster_size,
               num_clusters=cfg.num_clusters, cell_cap=cfg.cluster_cell_cap,
               max_iters=cfg.cluster_max_iters,
@@ -48,35 +58,6 @@ def _joint_dbscan(pts: torch.Tensor, valid: torch.Tensor,
             pts, valid, dedup_voxel=cfg.cluster_dedup_voxel,
             rep_cap=cfg.cluster_rep_cap, **kw)
     return _cluster.dbscan(pts, valid, **kw)
-
-
-class _StageClock:
-    """Per-stage milliseconds into ``out``: CUDA events on a CUDA device
-    (read after one synchronize at the end), host clock on the CPU."""
-
-    def __init__(self, out: Optional[dict], device: torch.device):
-        self.out = out
-        self.cuda = device.type == "cuda"
-        self.marks = []
-
-    def mark(self, name: str):
-        if self.out is None:
-            return
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append((name, ev))
-        else:
-            self.marks.append((name, time.perf_counter()))
-
-    def finish(self):
-        if self.out is None or not self.marks:
-            return
-        if self.cuda:
-            torch.cuda.synchronize()
-        for (name, a), (_, b) in zip(self.marks, self.marks[1:]):
-            self.out[name] = (a.elapsed_time(b) if self.cuda
-                              else (b - a) * 1e3)
 
 
 class SceneFlowEngine:
@@ -91,23 +72,27 @@ class SceneFlowEngine:
     def __init__(self, cfg: PipelineConfig, device=DEFAULT_DEVICE):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # what the last ``cluster_joint`` reported (hdbscan: its path and
+        # voxel count, and its stage milliseconds when timed; see
+        # ``joint_labels``)
+        self.cluster_info: dict = {}
 
     def _tensor(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(x).to(device=self.device, dtype=dtype)
 
-    def cluster_joint(self, pts_dst, valid_dst, pts_src_ego, valid_src):
+    def cluster_joint(self, pts_dst, valid_dst, pts_src_ego, valid_src,
+                      timed: bool = False):
         """Cluster dst u src jointly so static objects share labels.
-        Returns (labels_dst, labels_src) int32 in one label space."""
-        cfg = self.cfg
-        if cfg.use_hdbscan:
-            raise NotImplementedError(
-                "use_hdbscan=True: the hdbscan clusterer is not ported to "
-                "icpflow_tpu_torch yet (ROADMAP Queue 1 item 3)")
+        Returns (labels_dst, labels_src) int32 in one label space, on the
+        engine's device. ``timed`` adds the clusterer's stage milliseconds
+        to ``cluster_info`` (CUDA events and a synchronize)."""
         pts = torch.cat([self._tensor(pts_dst, torch.float32),
                          self._tensor(pts_src_ego, torch.float32)])
         valid = torch.cat([self._tensor(valid_dst, torch.bool),
                            self._tensor(valid_src, torch.bool)])
-        labels = _joint_dbscan(pts, valid, cfg)
+        self.cluster_info = {}
+        labels = joint_labels(pts, valid, self.cfg, info=self.cluster_info,
+                              timed=timed)
         n0 = len(pts_dst)
         return labels[:n0], labels[n0:]
 
@@ -143,13 +128,15 @@ class SceneFlowEngine:
                  timings: Optional[dict] = None) -> FusedPairOutput:
         """The main path for one ego-aligned frame pair: joint clustering,
         matching, flow. ``timings``, when given, receives the milliseconds
-        of the ``cluster``, ``track`` and ``flow`` stages."""
+        of the ``cluster``, ``track`` and ``flow`` stages, and
+        ``cluster_info`` the clusterer's own."""
         if pose is None:
             pose = np.eye(4, dtype=np.float32)
-        clock = _StageClock(timings, self.device)
+        clock = StageClock(timings, self.device)
         clock.mark("cluster")
         lab_dst, lab_src = self.cluster_joint(pts_dst, valid_dst, pts_src,
-                                              valid_src)
+                                              valid_src,
+                                              timed=timings is not None)
         clock.mark("track")
         out = self.track_pair(pts_src, valid_src, lab_src, pts_dst,
                               valid_dst, lab_dst, translation_frame)

@@ -20,10 +20,10 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
-from ..device import DEFAULT_DEVICE
+from ..device import DEFAULT_DEVICE, StageClock
 from ..ops.ego import EgoOdometry
 from ..ops.ground import segment_ground
-from .icp_flow import SceneFlowEngine, _StageClock
+from .icp_flow import SceneFlowEngine
 
 
 class StreamOutput(NamedTuple):
@@ -66,7 +66,7 @@ class StreamingEngine:
         """
         cfg = self.cfg
         eng = self.engine
-        clock = _StageClock(timings, self.device)
+        clock = StageClock(timings, self.device)
         scan = np.asarray(scan, np.float32)[:, :3]
 
         clock.mark("ego")

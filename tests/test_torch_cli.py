@@ -54,12 +54,13 @@ def _argv(root, num_frames, *extra):
 
 def _run(cli, argv, monkeypatch):
     """``cli.run`` at the reduced buckets of tests/test_cli_pca.py, with
-    small odometry buffers."""
+    small odometry buffers and an hdbscan representative bucket that holds
+    the joint cloud (the JAX package's exact graph sweeps all of it)."""
     args = cli.build_parser().parse_args(argv)
     cfg = CONFIG_FROM_ARGS[cli](args).replace(
         max_points_scene=4096, max_points=512, max_pairs=32, pairs_small=32,
         pairs_large=4, nn_tile=256, hist_grid_xy=64, ego_map_capacity=8192,
-        ego_src_capacity=2048)
+        ego_src_capacity=2048, hdbscan_rep_cap=8192)
     monkeypatch.setattr(cli, "config_from_args", lambda a: cfg)
     return cli.run(args)
 
@@ -76,13 +77,17 @@ def _side(tmp_path, monkeypatch, name, num_frames, n_samples=1):
     return cwd
 
 
-@pytest.mark.parametrize("num_frames", [2, 3])
-def test_cli_run_matches_jax(num_frames, tmp_path, monkeypatch, capsys):
+@pytest.mark.parametrize("num_frames, flags", [
+    pytest.param(2, (), id="2"), pytest.param(3, (), id="3"),
+    pytest.param(2, ("--if_hdbscan",), id="2-if_hdbscan"),
+])
+def test_cli_run_matches_jax(num_frames, flags, tmp_path, monkeypatch,
+                             capsys):
     _side(tmp_path, monkeypatch, "jax", num_frames)
-    j_epes = _run(jcli, _argv("data", num_frames), monkeypatch)
+    j_epes = _run(jcli, _argv("data", num_frames, *flags), monkeypatch)
     j_out = capsys.readouterr().out
     _side(tmp_path, monkeypatch, "torch", num_frames)
-    t_epes = _run(tcli, _argv("data", num_frames, "--device", "cpu"),
+    t_epes = _run(tcli, _argv("data", num_frames, *flags, "--device", "cpu"),
                   monkeypatch)
     t_out = capsys.readouterr().out
 

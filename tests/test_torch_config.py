@@ -140,11 +140,26 @@ def test_no_silent_fallbacks(monkeypatch):
     import torch
     from icpflow_tpu_torch.ops import knn
     from icpflow_tpu_torch.ops.cuda import nn_kernel
-    with pytest.raises(NotImplementedError, match="hdbscan"):
-        T.SceneFlowEngine(T.DEMO.replace(use_hdbscan=True),
-                          device="cpu").run_pair(
-            np.zeros((8, 3), np.float32), np.ones(8, bool),
-            np.zeros((8, 3), np.float32), np.ones(8, bool), 2.0)
+    # hdbscan without the native library: the reference's DBSCAN fallback,
+    # and it says so
+    from icpflow_tpu_torch.ops import cluster, hdbscan
+    monkeypatch.setattr(hdbscan, "get_lib", lambda: None)
+    rng = np.random.default_rng(0)
+    pts = torch.as_tensor(np.concatenate([
+        rng.normal(scale=0.1, size=(200, 3)),
+        rng.normal(loc=3.0, scale=0.1, size=(200, 3))]).astype(np.float32))
+    valid = torch.ones(400, dtype=torch.bool)
+    info = {}
+    cfg = T.DEMO.replace(use_hdbscan=True, min_cluster_size=10)
+    lab = hdbscan.hdbscan(pts, valid, cfg, info=info)
+    assert info["path"] == "dbscan_fallback"
+    np.testing.assert_array_equal(lab, cluster.dbscan(
+        pts, valid, eps=cfg.epsilon, min_points=10,
+        num_clusters=cfg.num_clusters, cell_cap=cfg.cluster_cell_cap,
+        max_iters=cfg.cluster_max_iters, eps_scale_per_m=0.012,
+        eps_max=cfg.eps_max).numpy())
+    assert lab.max() == 1
+    monkeypatch.undo()
     # the kernel wrapper takes CUDA tensors only
     x = torch.zeros((1, 4, 3))
     with pytest.raises(ValueError, match="CUDA"):

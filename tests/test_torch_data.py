@@ -337,27 +337,45 @@ def test_pca_ego_poses_match_jax_and_cache(datasets, monkeypatch):
     np.testing.assert_array_equal(tds.ego_poses(tdata), t_poses)
 
 
-# -- what is not ported yet raises, and nothing runs off the card silently --
+# -- use_hdbscan, what is not ported yet, and nothing off the card silently --
 def test_hdbscan_raises_naming_its_roadmap_item(datasets):
-    _, tds = datasets
-    tds.cfg = TCFG.replace(use_hdbscan=True)
-    data = tds.load_raw(tds.seq_paths[0])
-    ng = np.ones(len(data["raw_points"]), bool)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tds.cluster_pairs(data, data["ego_motion_gt"], ng)
+    """``use_hdbscan=True`` (a stub that raised until the clusterer was
+    ported): ``DatasetPCA.cluster_pairs`` gives the JAX package's labels,
+    and ``SceneFlowEngine.cluster_joint`` takes the same clusterer."""
+    jds, tds = datasets
+    jds.cfg = JCFG.replace(use_hdbscan=True, hdbscan_rep_cap=8192)
+    tds.cfg = T.config_from_dict(dataclasses.asdict(jds.cfg))
+    jdata = jds.load_raw(jds.seq_paths[0])
+    tdata = tds.load_raw(tds.seq_paths[0])
+    ng = jds.ground_removal(jdata)
+    j_pairs = jds.cluster_pairs(jdata, jdata["ego_motion_gt"], ng)
+    t_pairs = tds.cluster_pairs(tdata, tdata["ego_motion_gt"], ng)
+    assert len(t_pairs) == len(j_pairs) == NUM_FRAMES - 1
+    for tp, jp in zip(t_pairs, j_pairs):
+        for k in jp:
+            assert tp[k].dtype == jp[k].dtype, k
+            np.testing.assert_array_equal(tp[k], jp[k])
+        assert tp["label_src"].max() >= 1            # wall and car labelled
     eng = T.SceneFlowEngine(tds.cfg, device="cpu")
-    z = np.zeros((2048, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        eng.cluster_joint(z, z[:, 0] > 0, z, z[:, 0] > 0)
+    p = np.concatenate([tp["point_dst"], tp["point_src"]])[:4096]
+    lab_dst, lab_src = eng.cluster_joint(p[:2048], np.ones(2048, bool),
+                                         p[2048:], np.ones(len(p) - 2048,
+                                                           bool))
+    assert eng.cluster_info["path"] == "dedup"
+    assert lab_dst.dtype == lab_src.dtype == torch.int32
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--if_hdbscan"], "Queue 1 item 3"),
-    (["--dp", "2"], "Queue 1 item 4"),
-    (["--cp", "2"], "Queue 1 item 4"),
-    (["--multihost"], "Queue 1 item 4"),
+    pytest.param(["--dp", "2"], "Queue 1 item 4",
+                 id="flags1-Queue 1 item 4"),
+    pytest.param(["--cp", "2"], "Queue 1 item 4",
+                 id="flags2-Queue 1 item 4"),
+    pytest.param(["--multihost"], "Queue 1 item 4",
+                 id="flags3-Queue 1 item 4"),
 ])
 def test_cli_stubs_raise_naming_their_roadmap_item(flags, item, roots):
+    """What the port still lacks raises and names its ROADMAP item
+    (``--if_hdbscan`` runs: ``test_torch_cli.py``)."""
     args = tcli.build_parser().parse_args(
         ["--dataset", "waymo", "--root", roots[1], "--device", "cpu"] + flags)
     with pytest.raises(NotImplementedError, match=item):

@@ -110,3 +110,54 @@ def test_stream_pose_override_and_no_gpu_refusal():
         pytest.skip("a GPU is present: the no-GPU refusal cannot be shown")
     with pytest.raises(RuntimeError, match="cuda"):
         T.StreamingEngine(T.DEMO, device="cuda")
+
+
+# --------------------------------------------------- use_hdbscan=True
+# hdbscan's host stage leaves the JAX package's matcher staged; its
+# programs are canonicalised without the clustering fields, so they are the
+# ones the stream above compiled (same buckets): only hdbscan compiles here
+HDB_CFG = CFG.replace(use_hdbscan=True, hdbscan_rep_cap=8192)
+
+
+def _world(scans, k):
+    """Scan ``k`` in world coordinates, without its ground points."""
+    return scans[k][1600:] + EGO_V.astype(np.float32) * k
+
+
+def test_run_frame_pair_with_hdbscan_matches_jax(jax_outputs):
+    from icpflow_tpu import SceneFlowEngine as JEngine
+    from icpflow_tpu.pipeline import run_frame_pair as j_run_frame_pair
+    scans, gt = _stream()
+    src, dst = _world(scans, 1), _world(scans, 0)
+    pose = np.eye(4, dtype=np.float32)
+    jr = j_run_frame_pair(JEngine(HDB_CFG), src, dst, translation_frame=2.0,
+                          pose=pose)
+    eng = T.SceneFlowEngine(T.config_from_dict(dataclasses.asdict(HDB_CFG)),
+                            device="cpu")
+    tr = T.run_frame_pair(eng, src, dst, translation_frame=2.0, pose=pose)
+    info = eng.cluster_info
+    assert info["path"] == "dedup" and 0 < info["n_unique"] <= 8192
+    assert abs(len(tr.pairs) - len(jr.pairs)) <= 1 and len(tr.pairs) >= 1
+    g = gt[1600:]
+    epe_t = np.linalg.norm(tr.flow - g, axis=1).mean()
+    epe_j = np.linalg.norm(jr.flow - g, axis=1).mean()
+    assert abs(epe_t - epe_j) <= 0.005 and epe_t < 0.05
+    assert (tr.labels_src == jr.labels_src).mean() >= 0.99
+
+
+def test_stream_with_hdbscan_matches_jax(jax_outputs):
+    scans, gt = _stream()
+    jeng = JStream(HDB_CFG, estimate_ego=False)
+    eng = T.StreamingEngine(T.config_from_dict(dataclasses.asdict(HDB_CFG)),
+                            estimate_ego=False, device="cpu")
+    for k, scan in enumerate(scans):
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, 3] = EGO_V * k
+        o, j = eng.process(scan, pose=pose), jeng.process(scan, pose=pose)
+        if k == 0:
+            continue
+        assert eng.engine.cluster_info["path"] == "dedup"
+        assert np.isfinite(o.flow).all()
+        assert abs(_epe(o, gt) - _epe(j, gt)) <= 0.005 and _epe(o, gt) < 0.1
+        assert abs(len(o.pairs) - len(j.pairs)) <= 1 and len(o.pairs) >= 1
+        assert (o.labels == j.labels).mean() >= 0.99

@@ -31,6 +31,18 @@ prints what ``chip_smoke.JAX_OFFLINE_REFERENCE`` pins: the meters, the
 non-ground points per frame, the labelled clusters per pair and the
 estimated poses. About 8 minutes on this repository's 8-core CPU test host
 with a warm XLA compilation cache (jax 0.9.0; 55-195 s a run).
+
+    python3 tests/torch_smoke_reference.py --hdbscan
+
+runs instead ``use_hdbscan=True`` at the bench configuration: the frame
+pairs of gaps 1 and 4, gap 1 with ``hdbscan_exact=False``, and
+``cli.run --if_hdbscan`` over seed 7 with GT poses, printing what
+``chip_smoke.JAX_HDBSCAN_REFERENCE`` pins: EPE3D, dynamic EPE, matched
+pairs, labelled clusters and occupied voxels per pair, and the offline
+meters with the clusters per pair. About an hour on the same host (jax
+0.9.0; 5-7 minutes a pair, 27 for the voxel-hash pair, 18 for the offline
+sample: XLA:CPU sweeps every slot of the 32,768-slot representative
+bucket, and sorts every point's 5,184 voxel-hash candidates).
 """
 
 from __future__ import annotations
@@ -174,10 +186,78 @@ def offline():
     return out
 
 
+def _n_unique(cfg, src, dst):
+    """Occupied hdbscan voxels of the joint cloud hdbscan clusters: dst then
+    src, each padded to its bucket as ``run_frame_pair`` pads it."""
+    import jax.numpy as jnp
+    from icpflow_tpu import SceneFlowEngine
+    from icpflow_tpu.ops.cluster import voxel_dedup_compact
+    engine = SceneFlowEngine(cfg)
+    (pd, vd), (ps, vs) = engine.pad_cloud(dst), engine.pad_cloud(src)
+    out = voxel_dedup_compact(jnp.asarray(np.concatenate([pd, ps])),
+                              jnp.asarray(np.concatenate([vd, vs])),
+                              voxel=cfg.hdbscan_dedup_voxel,
+                              cap=cfg.hdbscan_rep_cap)
+    return int(out[-1])
+
+
+def hdbscan():
+    """``use_hdbscan=True`` at the bench configuration: the frame pairs of
+    gaps 1 and 4 (exact graph over the voxel representatives), gap 1 on the
+    voxel-hash graph (``hdbscan_exact=False``), and ``cli.run
+    --if_hdbscan`` over seed 7 with GT poses. Prints what
+    ``chip_smoke.JAX_HDBSCAN_REFERENCE`` pins."""
+    from icpflow_tpu import SceneFlowEngine, cli
+    from icpflow_tpu.config import PipelineConfig
+    from icpflow_tpu.data.pca import DatasetPCA
+    from icpflow_tpu.ops import hdbscan as jhd
+    from icpflow_tpu.pipeline import run_frame_pair
+    out = {}
+    for exact in (True, False):
+        cfg = PipelineConfig(**dataclasses.asdict(
+            chip_smoke.hdbscan_config(exact)))
+        engine = SceneFlowEngine(cfg)
+        gaps = chip_smoke.GAPS if exact else (1,)
+        for gap, src, dst, gt, dyn, tf in chip_smoke.scene_pairs(cfg, gaps=gaps):
+            t0 = time.time()
+            before = jhd.DEDUP_OVERFLOWS
+            res = run_frame_pair(engine, src, dst, translation_frame=tf,
+                                 pose=np.eye(4, dtype=np.float32))
+            m = chip_smoke.pair_metrics(res.flow, gt, dyn, res.pairs)
+            m.update(clusters=chip_smoke.pair_clusters(res.labels_src,
+                                                       res.labels_dst),
+                     n_src=len(src), n_dst=len(dst), overflow=res.overflow,
+                     dedup_overflows=jhd.DEDUP_OVERFLOWS - before,
+                     seconds=round(time.time() - t0, 1))
+            if exact:
+                m["n_unique"] = _n_unique(cfg, src, dst)
+            key = gap if exact else "voxel_hash"
+            out[key] = m
+            print(f"{key}: {json.dumps(m)}", flush=True)
+    cfg = PipelineConfig(**dataclasses.asdict(chip_smoke.offline_config(
+        False).replace(use_hdbscan=True)))
+    meters, data, pairs, seconds, _ = chip_smoke.run_offline(
+        cli, DatasetPCA, cfg, chip_smoke.SEED, False)
+    nonground, clusters = chip_smoke.offline_counts(pairs)
+    m = dict(meters={k: meters[k] for k in chip_smoke.offline_meter_names()},
+             nonground=nonground, clusters=clusters,
+             points=[int((data["time_indice"] == j).sum())
+                     for j in range(cfg.num_frames)],
+             seconds=round(seconds, 1))
+    out["offline"] = m
+    print(f"offline: {json.dumps(m)}", flush=True)
+    return out
+
+
 def main():
     jax.config.update("jax_platforms", "cpu")
     from icpflow_tpu.config import PipelineConfig
 
+    if "--hdbscan" in sys.argv:
+        print(json.dumps({"jax_backend": jax.default_backend(),
+                          "jax": jax.__version__,
+                          "hdbscan_reference": hdbscan()}))
+        return
     if "--offline" in sys.argv:
         print(json.dumps({"jax_backend": jax.default_backend(),
                           "jax": jax.__version__,
