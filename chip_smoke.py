@@ -1572,9 +1572,8 @@ def _check_graph(engine, pair):
     rows and against the same function on the CPU (the first
     ``HDBSCAN_CPU_REPS`` representatives); its time by CUDA events. Then
     the host copy that ``hdbscan`` makes of the graph and the other arrays
-    its host stages read: one packed copy (``hdbscan._fetch``) against one
-    ``.cpu()`` a tensor and against copies into pinned memory with one
-    synchronize, host clock included."""
+    its host stages read (``hdbscan._fetch``: pinned copies and one
+    synchronize) against one ``.cpu()`` a tensor, host work included."""
     import torch
     from icpflow_tpu_torch.ops import cluster, hdbscan
     cfg = engine.cfg
@@ -1631,25 +1630,14 @@ def _check_graph(engine, pair):
     arrays = hdbscan.compress_edges(ed, ew) + (
         rm.to(torch.int32), point_rep.to(torch.int32), rv, valid)
     mb = sum(t.numel() * t.element_size() for t in arrays) / 1e6
-
-    def pinned():
-        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                for t in arrays]
-        for h, t in zip(host, arrays):
-            h.copy_(t, non_blocking=True)
-        torch.cuda.current_stream().synchronize()
-        return [h.numpy() for h in host]
-
-    packed = _time_ms(lambda: hdbscan._fetch(*arrays), iters=20)
+    fetch = _time_ms(lambda: hdbscan._fetch(*arrays), iters=20)
     each = _time_ms(lambda: [t.cpu().numpy() for t in arrays], iters=20)
-    pin = _time_ms(pinned, iters=20)
-    same = all(np.array_equal(a, b) for a, b in
-               zip(hdbscan._fetch(*arrays), pinned()))
+    same = all(np.array_equal(a, t.cpu().numpy()) for a, t in
+               zip(hdbscan._fetch(*arrays), arrays))
     print(f"[hdbscan fetch] gap {gap}: {mb:.3f} MB in {len(arrays)} arrays "
-          f"| one packed copy {packed:.3f} ms, one .cpu() a tensor "
-          f"{each:.3f} ms, pinned copies and one synchronize {pin:.3f} ms "
-          f"| equal {same}", flush=True)
-    check(same, "hdbscan fetch: the pinned copies differ from _fetch's")
+          f"| pinned copies and one synchronize (_fetch) {fetch:.3f} ms, one "
+          f".cpu() a tensor {each:.3f} ms | equal {same}", flush=True)
+    check(same, "hdbscan fetch: _fetch differs from .cpu()")
 
 
 def _check_labels(engine, pair, out):
