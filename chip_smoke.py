@@ -63,8 +63,9 @@ Phases, one line each, any failure ends with a non-zero exit:
    printed;
 
 8. launch table: the launches per kernel and (B, N, M) are those phases 4
-   to 7 counted (phase 7: the hdbscan frame pairs, whose 200 clusters
-   give the matcher other batch sizes). The paths then run once more with
+   to 7 and 9 counted (phase 7: the hdbscan frame pairs, whose 200 clusters
+   give the matcher other batch sizes; phase 9: rank 0 of the sharded
+   run). The paths then run once more with
    every NN launch's
    inputs kept (the same launches, or the run fails), and each is launched
    again alone: valid pairs, kernel milliseconds and bound per kernel and
@@ -81,11 +82,23 @@ read just after; they show it went through the kernels and never through
 the plain NN version, and they are the launches the kernel table reports. The last lines are the card (nvidia-smi), the kernel
 table as JSON, and ``{"ok": true, "device": {...}}``.
 
+9. sharded path: the collectives on CUDA tensors (two ranks; each op the
+   sharded step and the CLI issue, against its known result); ``cli.run
+   --dp 2 --cp 2`` (four ranks started by the call: on one card they share
+   it over gloo, on four they take NCCL) over seed 7's offline sample,
+   written twice, with GT poses:
+   every meter within 1e-4 m of the unsharded run and within the band of
+   ``JAX_SHARDED_REFERENCE``, clusters and overflow as JAX's, the NN
+   launches of every rank handed back (none plain); ``--dp 4`` (a pair a
+   rank: every rank launches); ``run_scaling`` at the widths the cards
+   allow. The launch table (phase 8) replays rank 0's launches of the
+   (2, 2) run too. ``--sharded`` alone runs on four cards as well.
+
 ``python3 chip_smoke.py --profile`` instead profiles one warm stream frame
 under each policy with ``torch.profiler`` (device busy and idle share, the
 exact sweep's share) and prints no result line; ``python3 chip_smoke.py
---offline`` and ``--hdbscan`` run only the offline or the hdbscan path
-after the build, and print none either.
+--offline``, ``--hdbscan`` and ``--sharded`` run only the offline, the
+hdbscan or the sharded path after the build, and print none either.
 """
 
 from __future__ import annotations
@@ -96,6 +109,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -341,6 +355,31 @@ JAX_HDBSCAN_REFERENCE = {1: {'epe3d': 0.0004226506862323731,
                                      'points': [90203, 90482, 90754, 90890, 90992],
                                      'nonground': [63868, 64053, 64216, 64311, 64364],
                                      'clusters': [200, 200, 200, 200]}}
+# The JAX package's CLI with ``--dp 2 --cp 2`` on a virtual 4-device CPU
+# mesh (XLA:CPU, jax 0.9.0; `python3 tests/torch_smoke_reference.py
+# --sharded`, ``cli.run`` 150.0 s on the repository's 8-core CPU test host)
+# over seed 7's sample with GT poses: the meters of ``offline_meter_names()``
+# (equal to the unsharded run's in ``JAX_OFFLINE_REFERENCE`` to the last
+# bit: no slice of a pair overflowed), the labelled clusters and the
+# overflow of each frame pair.
+JAX_SHARDED_REFERENCE = {'meters': {'overall_0': 0.0003354838991072029,
+            'dynamic_0': 0.003749481402337551,
+            'static_0': 0.0,
+            'overall_1': 0.0003254579787608236,
+            'dynamic_1': 0.003747359151020646,
+            'static_1': 0.0,
+            'overall_2': 0.00028625759296119213,
+            'dynamic_2': 0.0032036106567829847,
+            'static_2': 0.0,
+            'overall_3': 0.0002889338356908411,
+            'dynamic_3': 0.0031932673882693052,
+            'static_3': 0.0,
+            'overall_4': 0.0004410862165968865,
+            'dynamic_4': 0.0048364694230258465,
+            'static_4': 0.0,
+            'overall_5': 0.0003354838991072029},
+ 'clusters': [8, 8, 8, 9],
+ 'overflow': [0, 0, 0, 0]}
 # documented knife-edge band of the accuracy guardrails: sub-mm NN
 # differences (here: the elementwise or sentinel form on the card vs the
 # expanded form everywhere on XLA:CPU) flip borderline ICP basins
@@ -449,6 +488,7 @@ def stream_frames(seed=SEED):
 OFFLINE_FIELDS = dict(dataset="waymo", range_x=32.0, range_y=32.0,
                       range_z=-1.6, ground_slack=0.3, num_frames=NUM_FRAMES)
 OFFLINE_SEEDS = (7, 8)
+SHARDED_ARGV = ("--dp", "2", "--cp", "2")
 
 
 def offline_config(kiss):
@@ -456,14 +496,15 @@ def offline_config(kiss):
     return bench_config().replace(use_kiss_icp=kiss, **OFFLINE_FIELDS)
 
 
-def offline_argv(root, kiss, device=None):
-    """The command line of one offline run over the samples in ``root``."""
+def offline_argv(root, kiss, device=None, extra=()):
+    """The command line of one offline run over the samples in ``root``,
+    ``extra`` appended."""
     argv = ["--dataset", "waymo", "--split", "test", "--root", root]
     if kiss:
         argv.append("--if_kiss_icp")
     if device is not None:
         argv += ["--device", device]
-    return argv
+    return argv + list(extra)
 
 
 def offline_meter_names():
@@ -505,15 +546,19 @@ def capture_prepare(dataset_cls, kept):
         dataset_cls._prepare = orig
 
 
-def run_offline(cli, dataset_cls, cfg, seed, kiss, device=None,
-                timings=None):
+def run_offline(cli, dataset_cls, cfg, seed, kiss, device=None, extra=(),
+                timed=None, samples=1, **run_kw):
     """One offline run of ``cli`` (either package's) over the scene of
-    ``seed``, written by ``make_sample`` into a fresh directory. The
+    ``seed``, written by ``make_sample`` into a fresh directory (as
+    ``samples`` samples of the same content, whose meters are then those
+    of one: the sums double with the counts). The
     working directory is that directory and the root is relative, so that
     neither the pose cache nor the resume state of another run is read, and
     no word of the path above it ("test", "val", "train") moves the cache.
-    Returns (meters, data, pairs, seconds of ``cli.run``, its printed
-    lines)."""
+    ``extra`` is appended to the command line and ``run_kw`` (``timings``,
+    ``ranks``) passed to ``cli.run``, which ``timed`` times (by default
+    the host clock; ``_timed``: CUDA events). Returns (meters, data, pairs,
+    seconds of ``cli.run``, its printed lines)."""
     from icpflow_tpu_torch.data.synthetic import make_sample
     kept, out = [], io.StringIO()
     orig, cwd = cli.config_from_args, os.getcwd()
@@ -521,21 +566,24 @@ def run_offline(cli, dataset_cls, cfg, seed, kiss, device=None,
         os.mkdir(os.path.join(td, "pca"))
         make_sample(os.path.join(td, "pca", f"scene{seed}.npz"),
                     num_frames=NUM_FRAMES, seed=seed)
-        args = cli.build_parser().parse_args(offline_argv("pca", kiss, device))
+        for i in range(1, samples):
+            shutil.copy(os.path.join(td, "pca", f"scene{seed}.npz"),
+                        os.path.join(td, "pca", f"scene{seed}_{i}.npz"))
+        args = cli.build_parser().parse_args(
+            offline_argv("pca", kiss, device, extra))
         cli.config_from_args = lambda a: cfg
         os.chdir(td)
         try:
             with capture_prepare(dataset_cls, kept), \
                     contextlib.redirect_stdout(out):
-                t0 = time.perf_counter()
-                meters = (cli.run(args) if timings is None
-                          else cli.run(args, timings=timings))
-                seconds = time.perf_counter() - t0
+                meters, ms = (timed or _host_timed)(
+                    lambda: cli.run(args, **run_kw))
         finally:
             os.chdir(cwd)
             cli.config_from_args = orig
-    check(len(kept) == 1, f"offline run prepared {len(kept)} samples")
-    return meters, kept[0][0], kept[0][1], seconds, out.getvalue().splitlines()
+    check(len(kept) == samples, f"offline run prepared {len(kept)} samples")
+    return (meters, kept[0][0], kept[0][1], ms / 1e3,
+            out.getvalue().splitlines())
 
 
 def pose_error(pose, ref):
@@ -648,6 +696,13 @@ def _tie_inputs(seed):
     dst[0, 9] = (0.0, 1.0, 0.0)
     return (src.astype(np.float32), dst.astype(np.float32),
             np.ones((2, 300), bool))
+
+
+def _host_timed(fn):
+    """(fn(), its milliseconds by the host clock)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def _timed(fn):
@@ -1664,13 +1719,6 @@ def _check_labels(engine, pair, out):
           f"CPU's on {share:.4f} of the points")
 
 
-def _host_timed(fn):
-    """(fn(), its milliseconds by the host clock)."""
-    t0 = time.perf_counter()
-    out = fn()
-    return out, (time.perf_counter() - t0) * 1e3
-
-
 def _check_hdbscan_pair(tag, out, gt, dyn, ref):
     """One hdbscan frame pair against GT and the JAX package's numbers."""
     check(out.flow.shape == gt.shape and bool(np.isfinite(out.flow).all()),
@@ -1827,6 +1875,183 @@ def phase_hdbscan(card):
     return per_kernel, (per_shape, 2 * len(pairs))
 
 
+# the collectives the sharded step and the CLI issue, by op and dtype
+COLLECTIVES = (("all_reduce_min", "float32"), ("all_reduce_min", "int64"),
+               ("all_reduce_sum", "float32"), ("all_reduce_sum", "int64"),
+               ("all_gather", "float32"), ("all_gather", "int64"),
+               ("all_gather", "bool"), ("broadcast", "int64"),
+               ("broadcast", "float32"), ("broadcast", "int32"),
+               ("broadcast", "bool"))
+
+
+def _probe_collectives():
+    """Every rank of a world on the card(s): each of ``COLLECTIVES`` on
+    CUDA tensors against its known result. Raises on the first that fails
+    or differs; returns {"op dtype": True} on success."""
+    import torch
+    import torch.distributed as dist
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    base = torch.arange(6, device=dev)
+    out = {}
+    for op, name in COLLECTIVES:
+        dtype = getattr(torch, name)
+        x = ((base + rank) % 2 if dtype == torch.bool else base + rank
+             ).to(dtype)
+        ranks = [((base + r) % 2 if dtype == torch.bool else base + r
+                  ).to(dtype).cpu() for r in range(world)]
+        if op == "all_gather":
+            parts = [torch.empty_like(x) for _ in range(world)]
+            dist.all_gather(parts, x)
+            got, want = torch.cat(parts), torch.cat(ranks)
+        elif op == "broadcast":
+            got = x.clone()
+            dist.broadcast(got, 0)
+            want = ranks[0]
+        else:
+            got = x.clone()
+            kind = op.split("_")[-1]
+            dist.all_reduce(got, op=getattr(dist.ReduceOp, kind.upper()))
+            stack = torch.stack(ranks)
+            want = stack.amin(0) if kind == "min" else stack.sum(0)
+        check(got.is_cuda and torch.equal(got.cpu(), want),
+              f"gloo {op} on CUDA {name}: {got.tolist()} != {want.tolist()}")
+        out[f"{op} {name}"] = True
+    return out
+
+
+def _rank_launches(ranks):
+    """(launches of each rank, plain calls of each rank, launches summed
+    over the ranks by kernel name) from ``cli.run(..., ranks=)``."""
+    by_name = {}
+    for r in ranks:
+        for (name, *_), c in r["shape_launches"].items():
+            by_name[name] = by_name.get(name, 0) + c
+    return ([r["nn_launches"] for r in ranks],
+            [r["plain_calls"] for r in ranks], by_name)
+
+
+def phase_sharded(card):
+    """The sharded path on the card: (b) the backend's collectives on CUDA
+    tensors, (a) ``cli.run --dp 2 --cp 2`` over seed 7's sample with GT
+    poses against the unsharded run and ``JAX_SHARDED_REFERENCE``, then
+    ``--dp 4`` (every rank a pair), (c) ``run_scaling`` at the widths the
+    cards allow. On one card the ranks share it over gloo; with a card a
+    rank they take NCCL. Returns the launches by kernel a sample summed
+    over the (2, 2) run's ranks and, for the launch table, rank 0's
+    launches by shape."""
+    import torch
+    from icpflow_tpu_torch import cli
+    from icpflow_tpu_torch.data.pca import DatasetPCA
+    from icpflow_tpu_torch.parallel.mesh import local_world, pick_backend
+    from icpflow_tpu_torch.parallel.scaling import run_scaling
+    cards = torch.cuda.device_count()
+
+    # (b) each collective on two ranks
+    with local_world(2, "cuda", _probe_collectives) as backend:
+        probed = _probe_collectives()
+    check(backend == pick_backend("cuda", 2) == ("gloo" if cards < 2
+                                                 else "nccl"),
+          f"two ranks on {cards} cards took {backend}")
+    print(f"[sharded {backend}] 2 ranks on {cards} card(s): {len(probed)} "
+          f"of {len(COLLECTIVES)} collectives right on CUDA tensors "
+          f"({', '.join(probed)}); no tensor is staged through the host by "
+          "the port", flush=True)
+
+    # (a) the sharded CLI against the unsharded one, both after phase 6
+    cfg = offline_config(False)
+    ref = JAX_SHARDED_REFERENCE
+    # two samples of the scene: the second finds every rank warm
+    single_t = []
+    single, _, _, single_s, _ = run_offline(
+        cli, DatasetPCA, cfg, SEED, False, timed=_timed, samples=2,
+        timings=single_t)
+    runs = {}
+    for argv, samples in ((SHARDED_ARGV, 2), (("--dp", "4"), 1)):
+        ranks, timings = [], []
+        _reset_counts()
+        runs[argv] = run_offline(cli, DatasetPCA, cfg, SEED, False,
+                                 extra=argv, timed=_timed, samples=samples,
+                                 ranks=ranks, timings=timings) + (ranks,
+                                                                  timings)
+    meters, data, pairs, seconds, lines, ranks, timings = runs[SHARDED_ARGV]
+    mesh_line = ("sharded step over mesh dp=2 cp=2 backend="
+                 + pick_backend("cuda", 4))
+    check(mesh_line in lines, f"sharded: no '{mesh_line}' in {lines[:3]}")
+    check(len([ln for ln in lines if " EPE3D: " in ln])
+          == 6 * (NUM_FRAMES + 1), "sharded: the report is short")
+    worst = max(abs(meters[k] - single[k]) for k in single)
+    worst_jax = max(abs(meters[k] - ref["meters"][k])
+                    for k in offline_meter_names())
+    _, clusters = offline_counts(pairs)
+    overflow = [int(m.group(1)) for m in
+                (re.search(r"WARNING: (\d+) candidate", ln) for ln in lines)
+                if m]
+    launches, plain, by_name = _rank_launches(ranks)
+    print(f"[sharded dp=2 cp=2] overall_0 {meters['overall_0']:.5f} dynamic_0 "
+          f"{meters['dynamic_0']:.5f} | worst meter vs unsharded "
+          f"{worst:.2e} m, vs JAX sharded {worst_jax:.5f} m | clusters per "
+          f"pair {clusters} (JAX {ref['clusters']}) | overflow warnings "
+          f"{overflow} (JAX {ref['overflow']}) | NN launches by rank over 2 "
+          f"samples {launches} (sum {sum(launches)}), plain NN calls by rank "
+          f"{plain} | {card}", flush=True)
+    # the pairs' ms of each sample: the sharded step (rank 0's broadcast
+    # and step) against the unsharded track + flow
+    step = [t["sharded"]["broadcast"] + t["sharded"]["step"]
+            for t in timings]
+    pairs_ms = [sum(p["track"] + p["flow"] for p in t["pairs"])
+                for t in single_t]
+    print(f"[sharded time] two samples of seed 7, cli.run by CUDA events: "
+          f"sharded dp=2 cp=2 {seconds:.2f} s (starting 3 rank processes "
+          f"included), unsharded {single_s:.2f} s | the pairs of sample 1 "
+          f"(cold ranks) / 2 (warm): sharded broadcast + step "
+          f"{step[0]:.1f} / {step[1]:.1f} ms, unsharded track + flow "
+          f"{pairs_ms[0]:.1f} / {pairs_ms[1]:.1f} ms | {card}", flush=True)
+    for k in single:
+        check(abs(meters[k] - single[k]) <= 1e-4, f"sharded: meter {k} "
+              f"{meters[k]:.6f} vs unsharded {single[k]:.6f}")
+    for k in offline_meter_names():
+        check(abs(meters[k] - ref["meters"][k]) <= EPE_BAND, f"sharded: "
+              f"meter {k} {meters[k]:.5f} vs JAX {ref['meters'][k]:.5f}")
+    for j, (a, b) in enumerate(zip(clusters, ref["clusters"]), 1):
+        check(abs(a - b) <= CLUSTER_BAND,
+              f"sharded: pair {j} has {a} clusters, JAX {b}")
+    check(overflow == [o for o in ref["overflow"] if o > 0],
+          f"sharded: overflow {overflow}, JAX {ref['overflow']}")
+    check(len(ranks) == 4 and sum(launches) > 0 and not any(plain),
+          f"sharded: launches {launches}, plain NN calls {plain}")
+    check(not any(r["tf32"] for r in ranks), "sharded: TF32 on in a rank")
+    check(len(timings) == 2 and all(v % 2 == 0 for v in by_name.values()),
+          f"sharded: {len(timings)} samples, launches {by_name}")
+    # the valid pairs sit at the front of each pair frame, which is the cp
+    # rank 0 slice; the cp rank 1 slices hold none at this sample
+    check(launches[0] > 0 and launches[2] > 0,
+          f"sharded: the cp rank 0 ranks launched {launches}")
+
+    # --dp 4: one pair a rank, so every rank runs the matcher
+    meters4, *_, ranks4, _ = runs[("--dp", "4")]
+    launches4, plain4, _ = _rank_launches(ranks4)
+    worst4 = max(abs(meters4[k] - single[k]) for k in single)
+    print(f"[sharded dp=4] worst meter vs unsharded {worst4:.2e} m | NN "
+          f"launches by rank {launches4}, plain NN calls by rank {plain4} | "
+          f"cli.run {runs[('--dp', '4')][3]:.2f} s | {card}", flush=True)
+    check(worst4 <= 1e-4, f"dp=4: meters {worst4:.3g} m from unsharded")
+    check(all(n > 0 for n in launches4) and not any(plain4),
+          f"dp=4: launches {launches4}, plain NN calls {plain4}")
+
+    # (c) scaling: one rank a card, the widths the cards allow
+    widths = [w for w in (1, 2, 4) if w <= cards]
+    scaling = run_scaling([1, 2, 4])
+    for r in scaling:
+        print(f"[sharded scaling] {json.dumps(r)} | {card}", flush=True)
+    check([r["dp"] for r in scaling] == widths
+          and all(r["pairs_per_sec"] > 0 for r in scaling),
+          f"scaling ran widths {[r['dp'] for r in scaling]} on {cards} cards")
+    torch.cuda.synchronize()
+    return ({k: v // 2 for k, v in by_name.items()},
+            (ranks[0]["shape_launches"], 2))
+
+
 def _record_launches(run):
     """Run ``run()`` with the inputs of every NN launch cloned on the card.
     Returns [(kernel name, src, dst, dst_mask, src_mask | None, (dst
@@ -1949,10 +2174,11 @@ def phase_launch_table(rows, counted):
         with _nn_variant(variant):
             _run_stream(cfg, scans)
 
-    def run_sample():
+    def run_sample(extra=()):
         from icpflow_tpu_torch import cli
         from icpflow_tpu_torch.data.pca import DatasetPCA
-        run_offline(cli, DatasetPCA, offline_config(False), SEED, False)
+        run_offline(cli, DatasetPCA, offline_config(False), SEED, False,
+                    extra=extra)
 
     paths = [("pair", "pair", len(pairs), run_pairs),
              ("stream vpu2", "frame", len(scans) - 1,
@@ -1960,7 +2186,9 @@ def phase_launch_table(rows, counted):
              ("stream default", "frame", len(scans) - 1,
               lambda: run_stream("auto")),
              ("offline", "sample", 1, run_sample),
-             ("hdbscan pair", "pair", len(pairs), lambda: run_pairs(hdb))]
+             ("hdbscan pair", "pair", len(pairs), lambda: run_pairs(hdb)),
+             ("sharded rank 0", "sample", 1,
+              lambda: run_sample(SHARDED_ARGV))]
     for label, unit, units, run in paths:
         rec = _record_launches(run)
         for name, groups in _replay(label, unit, units, rec, counted[label],
@@ -2061,16 +2289,21 @@ def main():
     if "--hdbscan" in sys.argv[1:]:
         phase_hdbscan(card)
         return 0
+    if "--sharded" in sys.argv[1:]:
+        phase_sharded(card)
+        return 0
     rows = phase_kernels()
     per_kernel, pair_shapes = phase_main_path(card)
     stream_kernel, stream_shapes = phase_stream(card)
     offline_kernel, offline_shapes = phase_offline(card)
     hdbscan_kernel, hdbscan_shapes = phase_hdbscan(card)
+    sharded_kernel, sharded_shapes = phase_sharded(card)
     phase_launch_table(rows, {"pair": pair_shapes,
                               "stream vpu2": stream_shapes["vpu2"],
                               "stream default": stream_shapes["auto"],
                               "offline": offline_shapes,
-                              "hdbscan pair": hdbscan_shapes})
+                              "hdbscan pair": hdbscan_shapes,
+                              "sharded rank 0": sharded_shapes})
     table = []
     for name, (form, _, rep, _) in KERNELS.items():
         # launches: the frame-pair path's count; the sentinel kernels run
@@ -2091,6 +2324,7 @@ def main():
                           replaces=rep, launches=path[name],
                           launches_offline=offline,
                           launches_hdbscan=hdbscan_kernel.get(name, 0),
+                          launches_sharded=sharded_kernel.get(name, 0),
                           **rows[name]["times"][0], **rows[name]))
     print(f"[done] {time.time() - t0:.1f} s", flush=True)
     print(card)

@@ -10,6 +10,9 @@ value (`main.py:200` semantics computed per gap). Port of
 
 Run e.g.:
     python -m icpflow_tpu_torch.cli --dataset waymo --split test --root /data/pca/
+    python -m icpflow_tpu_torch.cli ... --dp 2 --cp 2      # 4 ranks, this host
+    torchrun --nnodes N --nproc-per-node G -m icpflow_tpu_torch.cli ... \
+        --dp D --cp C --multihost                           # D * C = N * G
 """
 
 from __future__ import annotations
@@ -23,13 +26,18 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from .config import PRESETS, PipelineConfig
-from .device import DEFAULT_DEVICE, StageClock
+from .device import DEFAULT_DEVICE, StageClock, resolve_device
 from .metrics import (CATEGORIES, compute_epe, crop_for_eval, make_meters,
                       meters_from_state, meters_to_state, report,
                       update_metrics)
 from .models.icp_flow import SceneFlowEngine
+from .parallel.mesh import init_world, local_world, make_mesh
+from .parallel.shard import (broadcast_batch, make_sharded_step, serve_pairs,
+                             stop_ranks)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,15 +81,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_samples", type=int, default=None,
                    help="process only the first N samples")
     # distribution (framework extension; the reference is explicitly
-    # single-GPU, main.py:141-142): dp across frame pairs, cp across
-    # cluster-pair buckets. Parsed, but widths above 1 and --multihost raise
-    # until the port has its sharded step
+    # single-GPU, main.py:141-142): shard each sample's frame pairs over a
+    # (dp, cp) mesh of ranks via parallel/shard.make_sharded_step -- dp
+    # across frame pairs, cp across cluster-pair buckets
     p.add_argument("--dp", type=int, default=1,
                    help="data-parallel width over frame pairs")
     p.add_argument("--cp", type=int, default=1,
                    help="cluster-pair parallel width inside the matcher")
     p.add_argument("--multihost", action="store_true",
-                   help="one process per host (not ported yet)")
+                   help="join the ranks a launcher started (torchrun's RANK, "
+                        "WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) "
+                        "instead of starting dp * cp ranks on this host")
     p.add_argument("--device", type=str, default=DEFAULT_DEVICE,
                    help="torch device; 'cpu' runs the plain PyTorch "
                         "versions of the kernels")
@@ -121,22 +131,117 @@ def config_from_args(args) -> PipelineConfig:
     return cfg.replace(**over)
 
 
-def run(args, timings: Optional[list] = None) -> dict:
+def _run_pairs_sharded(engine, step, dp, cfg, data, pairs,
+                       ms: Optional[dict] = None):
+    """All frame pairs of one sample through the (dp, cp)-sharded step.
+
+    Pads every pair's clouds to one shared bucket (the step takes one
+    batch), rounds the batch up to a multiple of dp with dummy pairs (empty
+    masks: identity transforms, flow ignored), broadcasts it to the ranks
+    and returns (per-pair flows trimmed to their point counts, the metric
+    sums over the mesh, per-pair overflow). ``ms``, when a dict, receives
+    the ``pad``, ``broadcast`` and ``step`` milliseconds."""
+    clock = StageClock(ms, engine.device)
+    clock.mark("pad")
+    ego_poses = data["ego_poses"]
+    ti = data["time_indice"]
+    n_pairs = len(pairs)
+    B = -(-n_pairs // dp) * dp
+    n_max = max(max(len(p["point_src"]), len(p["point_dst"])) for p in pairs)
+    bucket = 2048
+    while bucket < n_max:
+        bucket *= 2
+    bucket = min(bucket, cfg.max_points_scene)
+
+    ps = np.zeros((B, bucket, 3), np.float32)
+    vs = np.zeros((B, bucket), bool)
+    ls = np.full((B, bucket), -1, np.int32)
+    pd_ = np.zeros((B, bucket, 3), np.float32)
+    vd = np.zeros((B, bucket), bool)
+    ld = np.full((B, bucket), -1, np.int32)
+    gt = np.zeros((B, bucket, 3), np.float32)
+    poses = np.broadcast_to(np.eye(4, dtype=np.float32), (B, 4, 4)).copy()
+    tfs = np.ones((B,), np.float32)
+    for i, pair in enumerate(pairs):
+        j = i + 1
+        ps[i], vs[i], ls[i] = engine.pad_cloud(
+            pair["point_src"], pair["label_src"], bucket=bucket)
+        pd_[i], vd[i], ld[i] = engine.pad_cloud(
+            pair["point_dst"], pair["label_dst"], bucket=bucket)
+        gtj = data["scene_flow"][ti == j]
+        gt[i, : len(gtj)] = gtj
+        poses[i] = ego_poses[j].astype(np.float32)
+        tfs[i] = max(cfg.speed * j,
+                     float(np.linalg.norm(ego_poses[j][:3, 3]))) * 2.0
+    clock.mark("broadcast")
+    batch = broadcast_batch((ps, vs, ls, pd_, vd, ld, gt, poses, tfs),
+                            engine.device)
+    clock.mark("step")
+    flow_b, _transforms, sums = step(*batch)
+    flow_b = flow_b.cpu().numpy()
+    clock.mark("end")
+    clock.finish()
+    flows = [flow_b[i, : len(pairs[i]["point_src"])] for i in range(n_pairs)]
+    return flows, sums.cpu().numpy(), step.overflow[:n_pairs].tolist()
+
+
+def run(args, timings: Optional[list] = None,
+        ranks: Optional[list] = None) -> dict:
     """Process the dataset and return ``{meter name: epe_avg}``.
 
     ``timings``, when a list, receives one dict a sample: the milliseconds
     of its ``load``, ``ground``, ``ego`` and ``cluster`` stages and, under
-    ``pairs``, of each frame pair's ``pad``, ``track`` and ``flow``."""
+    ``pairs``, of each frame pair's ``pad``, ``track`` and ``flow`` (under
+    ``sharded``, of the sample's ``pad``, ``broadcast`` and ``step``, when
+    the pairs go through the sharded step).
+
+    With ``--dp`` / ``--cp`` above 1 each sample's frame pairs go through
+    the sharded step of a (dp, cp) mesh of dp * cp ranks: processes this
+    call starts on this host, the caller being rank 0, or with
+    ``--multihost`` the processes a launcher started, each of which calls
+    ``run``. Rank 0 reads the samples, keeps the meters and writes the
+    files; every rank returns its result. ``ranks``, when a list,
+    receives every rank's NN kernel launches and plain NN calls
+    (``parallel.shard.rank_stats``) once the sharded run ends."""
     cfg = config_from_args(args)
+    resolve_device(args.device)
+    n_ranks = args.dp * args.cp
     if args.multihost:
-        raise NotImplementedError(
-            "--multihost: the multi-process entry is not ported to "
-            "icpflow_tpu_torch yet (ROADMAP Queue 1 item 4)")
-    if args.dp * args.cp > 1:
-        raise NotImplementedError(
-            "--dp / --cp above 1: the sharded step is not ported to "
-            "icpflow_tpu_torch yet (ROADMAP Queue 1 item 4)")
+        init_world(args.device)
+        try:
+            if dist.get_world_size() != n_ranks:
+                raise ValueError(f"--multihost: {dist.get_world_size()} "
+                                 f"ranks, --dp * --cp is {n_ranks}")
+            if dist.get_rank() == 0:
+                out = [_run(args, cfg, timings, ranks)]
+            else:
+                serve_pairs(cfg, args.dp, args.cp, args.device)
+                out = [None]
+            if n_ranks > 1:
+                dist.broadcast_object_list(out, src=0)
+            return out[0]
+        finally:
+            dist.destroy_process_group()
+    if n_ranks > 1:
+        if torch.device(args.device).type == "cuda":
+            from .ops.cuda import nn_kernel
+            nn_kernel.build()     # once, before the ranks load it
+        with local_world(n_ranks, args.device, serve_pairs,
+                         (cfg, args.dp, args.cp, args.device)):
+            return _run(args, cfg, timings, ranks)
+    return _run(args, cfg, timings, ranks)
+
+
+def _run(args, cfg: PipelineConfig, timings, ranks) -> dict:
+    """Rank 0's part of ``run``: read the samples, match their pairs
+    (through the sharded step with --dp / --cp above 1), score, write."""
     engine = SceneFlowEngine(cfg, device=args.device)
+    step = None
+    if args.dp * args.cp > 1:
+        step = make_sharded_step(make_mesh(args.dp, args.cp, args.device),
+                                 cfg)
+        print(f"sharded step over mesh dp={args.dp} cp={args.cp} "
+              f"backend={dist.get_backend()}")
 
     if args.dataset in ("waymo", "nuscene"):
         from .data.pca import DatasetPCA
@@ -187,8 +292,22 @@ def run(args, timings: Optional[list] = None) -> dict:
         ti = data["time_indice"]
         flows = [np.zeros((int((ti == 0).sum()), 3), np.float32)]
         pair_times = []
+        sample_ms = None if timings is None else {}
 
-        for j, pair in enumerate(pairs, 1):
+        if step is not None:
+            pair_flows, dev_sums, overflows = _run_pairs_sharded(
+                engine, step, args.dp, cfg, data, pairs, sample_ms)
+            flows.extend(pair_flows)
+            for overflow in overflows:
+                if overflow > 0:
+                    print(f"  WARNING: {overflow} candidate pairs beyond the "
+                          f"pair buckets were dropped (raise --max_pairs / "
+                          f"pairs_small)")
+            if args.if_verbose:
+                print(f"  device metric sums (summed over the mesh): "
+                      f"n={dev_sums[0]:.0f} "
+                      f"epe={dev_sums[1] / max(dev_sums[0], 1):.5f}")
+        for j, pair in ([] if step is not None else enumerate(pairs, 1)):
             pair_ms = None if timings is None else {}
             clock = StageClock(pair_ms, engine.device)
             clock.mark("pad")
@@ -225,6 +344,8 @@ def run(args, timings: Optional[list] = None) -> dict:
             pair_times.append(pair_ms)
         if timings is not None:
             timings.append(dict(ds.timings, pairs=pair_times))
+            if step is not None:
+                timings[-1]["sharded"] = sample_ms
 
         flow_seq = np.concatenate(flows)
         # metric protocol: crop + category sweep (utils_eval.py:185-368)
@@ -280,6 +401,10 @@ def run(args, timings: Optional[list] = None) -> dict:
             np.savez_compressed(path, scene_flow=flow_seq,
                                 ego_motion=ego_poses)
 
+    if step is not None:
+        stats = stop_ranks(args.device)
+        if ranks is not None:
+            ranks.extend(stats)
     print("#" * 30, "Results over the entire dataset", "#" * 30)
     print(report(meters, cfg.num_frames))
     print(f"total time (hours): {(time.time() - start) / 3600.0:.4f}")

@@ -233,10 +233,15 @@ def _run_stage(seg_src: SegmentBatch, seg_dst: SegmentBatch,
     return T, stats, accept & pair_valid, dropped, id_pt
 
 
-def _assign(pair_src, err, accept, L, thres_error):
+def _assign(pair_src, err, accept, L, thres_error, idx_offset=0,
+            total_pairs=None, cp_group=None):
     """Per-source-label argmin assignment with error gate (ICP-Flow
     `utils_match.py:110-121`): two scatter-mins, the second breaking ties by
-    the lowest pair index. Returns (matched (L,), chosen (L,) int64)."""
+    the lowest pair index. When the pair frame is one cp rank's slice,
+    ``idx_offset`` makes the local pair indices global among
+    ``total_pairs``, and both tables are min-reduced over ``cp_group``.
+    Returns (matched (L,), chosen (L,) int64)."""
+    K_total = total_pairs if total_pairs is not None else pair_src.shape[0]
     K = pair_src.shape[0]
     dev = pair_src.device
     score = torch.where(accept, err, torch.full_like(err, _INF))
@@ -244,21 +249,32 @@ def _assign(pair_src, err, accept, L, thres_error):
                            torch.full_like(pair_src.long(), L))
     best = torch.full((L + 1,), _INF, dtype=err.dtype, device=dev)
     best.scatter_reduce_(0, src_safe, score, reduce="amin")
+    if cp_group is not None:
+        best = cp_group.all_reduce(best, "min")
     is_best = accept & (score <= best[src_safe]) & (score < thres_error)
-    gidx = torch.arange(K, device=dev)
-    cand = torch.where(is_best, gidx, torch.full_like(gidx, K))
-    chosen = torch.full((L + 1,), K, dtype=torch.int64, device=dev)
+    gidx = torch.arange(K, device=dev) + idx_offset
+    cand = torch.where(is_best, gidx, torch.full_like(gidx, K_total))
+    chosen = torch.full((L + 1,), K_total, dtype=torch.int64, device=dev)
     chosen.scatter_reduce_(0, src_safe, cand, reduce="amin")
+    if cp_group is not None:
+        chosen = cp_group.all_reduce(chosen, "min")
     chosen = chosen[:L]
-    matched = chosen < K
-    return matched, torch.clamp(chosen, max=K - 1)
+    matched = chosen < K_total
+    return matched, torch.clamp(chosen, max=K_total - 1)
 
 
 def match_frame_pair(seg_src: SegmentBatch, seg_dst: SegmentBatch,
-                     translation_frame: float,
-                     cfg: PipelineConfig) -> MatchResult:
+                     translation_frame: float, cfg: PipelineConfig,
+                     cp_group=None) -> MatchResult:
     """Full two-stage matching of one frame pair (ICP-Flow
-    `utils_match.py:24-66`)."""
+    `utils_match.py:24-66`).
+
+    With ``cp_group`` (a ``parallel.mesh.Axis``: ``rank``, ``size``,
+    ``all_reduce``, ``all_gather``) the pair frame of each stage is split
+    over the cp ranks: each solves its slice, with the ``pairs_small`` /
+    ``pairs_large`` caps applying to the slice, the assignment tables are
+    min-reduced, the per-pair results gathered in rank order, and the
+    dropped pairs summed. The stage-2 candidate order stays global."""
     L = seg_src.xyz.shape[0]
     dev = seg_src.xyz.device
     sanity = gates.sanity_matrix(
@@ -267,13 +283,29 @@ def match_frame_pair(seg_src: SegmentBatch, seg_dst: SegmentBatch,
         min_cluster_size=cfg.min_cluster_size, thres_box=cfg.thres_box,
         translation_frame=translation_frame)
 
+    def shard_slice(arrs, total):
+        if cp_group is None:
+            return arrs, 0
+        per = total // cp_group.size
+        if per * cp_group.size != total:
+            raise ValueError(f"{total} pairs do not split over "
+                             f"{cp_group.size} cp ranks")
+        off = cp_group.rank * per
+        return [a[off:off + per] for a in arrs], off
+
+    def gather(x):
+        return x if cp_group is None else cp_group.all_gather(x)
+
     # ---- stage 1: static self-pairs -------------------------------------
     iota = torch.arange(L, device=dev)
     valid1 = torch.diagonal(sanity)
+    (p1, v1), off1 = shard_slice([iota, valid1], L)
     T1, stats1, accept1, dropped1, idp1 = _run_stage(
-        seg_src, seg_dst, iota, iota, valid1, translation_frame, cfg)
+        seg_src, seg_dst, p1, p1, v1, translation_frame, cfg)
     err1 = torch.minimum(stats1[:, 0], stats1[:, 1])
-    matched1, _ = _assign(iota, err1, accept1, L, cfg.thres_error)
+    matched1, _ = _assign(p1, err1, accept1, L, cfg.thres_error,
+                          idx_offset=off1, total_pairs=L, cp_group=cp_group)
+    T1, stats1, idp1 = gather(T1), gather(stats1), gather(idp1)
 
     # ---- stage 2: dynamic cartesian leftovers ---------------------------
     left_src = (seg_src.count > 0) & ~matched1
@@ -286,11 +318,14 @@ def match_frame_pair(seg_src: SegmentBatch, seg_dst: SegmentBatch,
     valid2 = flat[order]
     pair_src2 = order // L
     pair_dst2 = order % L
+    (p2, d2, v2), off2 = shard_slice([pair_src2, pair_dst2, valid2], K2)
     T2, stats2, accept2, dropped2, idp2 = _run_stage(
-        seg_src, seg_dst, pair_src2, pair_dst2, valid2, translation_frame,
-        cfg)
+        seg_src, seg_dst, p2, d2, v2, translation_frame, cfg)
     err2 = torch.minimum(stats2[:, 0], stats2[:, 1])
-    matched2, chosen2 = _assign(pair_src2, err2, accept2, L, cfg.thres_error)
+    matched2, chosen2 = _assign(
+        p2, err2, accept2, L, cfg.thres_error, idx_offset=off2,
+        total_pairs=None if cp_group is None else K2, cp_group=cp_group)
+    T2, stats2, idp2 = gather(T2), gather(stats2), gather(idp2)
 
     # ---- combine: stage-1 winners keep their match ----------------------
     eye = geo.eye4(L, T1)
@@ -304,8 +339,12 @@ def match_frame_pair(seg_src: SegmentBatch, seg_dst: SegmentBatch,
                                                   torch.full_like(iota, -1)))
     identity_pt = torch.where(m1[:, None], idp1,
                               m2[:, None] & idp2[chosen2])
+    dropped = dropped1 + dropped2
+    if cp_group is not None:
+        dropped = int(cp_group.all_reduce(
+            torch.tensor([dropped], device=dev), "sum")[0])
     return MatchResult(
         matched=m1 | m2, dst_label=dst_label.to(torch.int32),
         transforms=transforms, stats=stats,
-        overflow=torch.tensor(overflow + dropped1 + dropped2),
+        overflow=torch.tensor(overflow + dropped),
         identity_pt=identity_pt)

@@ -7,8 +7,7 @@ annotations (the reference's `visualize_pcd_plotly`) lives in
 `utils/viz3d.py` as a self-contained HTML emitter. All viewers accept plain
 numpy arrays and are no-ops when the backend is missing, so the pipeline
 never takes a hard dependency on a GUI stack. A copy of
-``icpflow_tpu/utils/viz.py`` (which cannot be imported without JAX); the
-3D viewer is not ported yet.
+``icpflow_tpu/utils/viz.py`` (which cannot be imported without JAX).
 """
 
 from __future__ import annotations

@@ -30,7 +30,6 @@ from icpflow_tpu.data.argo import DatasetArgo as JArgo  # noqa: E402
 from icpflow_tpu.data.pca import DatasetPCA as JPCA  # noqa: E402
 
 import icpflow_tpu_torch as T  # noqa: E402
-from icpflow_tpu_torch import cli as tcli  # noqa: E402
 from icpflow_tpu_torch.data import loading as tloading  # noqa: E402
 from icpflow_tpu_torch.data import native_loader as tnl  # noqa: E402
 from icpflow_tpu_torch.data.argo import DatasetArgo as TArgo  # noqa: E402
@@ -337,7 +336,7 @@ def test_pca_ego_poses_match_jax_and_cache(datasets, monkeypatch):
     np.testing.assert_array_equal(tds.ego_poses(tdata), t_poses)
 
 
-# -- use_hdbscan, what is not ported yet, and nothing off the card silently --
+# -- use_hdbscan, and nothing off the card silently --
 def test_hdbscan_raises_naming_its_roadmap_item(datasets):
     """``use_hdbscan=True`` (a stub that raised until the clusterer was
     ported): ``DatasetPCA.cluster_pairs`` gives the JAX package's labels,
@@ -363,23 +362,6 @@ def test_hdbscan_raises_naming_its_roadmap_item(datasets):
                                                            bool))
     assert eng.cluster_info["path"] == "dedup"
     assert lab_dst.dtype == lab_src.dtype == torch.int32
-
-
-@pytest.mark.parametrize("flags, item", [
-    pytest.param(["--dp", "2"], "Queue 1 item 4",
-                 id="flags1-Queue 1 item 4"),
-    pytest.param(["--cp", "2"], "Queue 1 item 4",
-                 id="flags2-Queue 1 item 4"),
-    pytest.param(["--multihost"], "Queue 1 item 4",
-                 id="flags3-Queue 1 item 4"),
-])
-def test_cli_stubs_raise_naming_their_roadmap_item(flags, item, roots):
-    """What the port still lacks raises and names its ROADMAP item
-    (``--if_hdbscan`` runs: ``test_torch_cli.py``)."""
-    args = tcli.build_parser().parse_args(
-        ["--dataset", "waymo", "--root", roots[1], "--device", "cpu"] + flags)
-    with pytest.raises(NotImplementedError, match=item):
-        tcli.run(args)
 
 
 @pytest.mark.parametrize("make", [

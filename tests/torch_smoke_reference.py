@@ -56,6 +56,9 @@ import sys
 import time
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+if "--sharded" in sys.argv:
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " "
+                               "--xla_force_host_platform_device_count=4")
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import jax  # noqa: E402
@@ -249,9 +252,66 @@ def hdbscan():
     return out
 
 
+@contextlib.contextmanager
+def pair_overflows(out):
+    """Record ``{translation_frame: overflow}`` of every frame pair that the
+    JAX package's sharded step matches inside the block. The matcher runs
+    traced inside ``shard_map``; a debug callback hands the host each
+    device's value (the same on every cp device after the matcher's psum),
+    and a pair's search radius names it."""
+    from icpflow_tpu.parallel import shard
+    orig = shard.match_frame_pair
+
+    def record(tf, overflow):
+        out[round(float(tf), 5)] = int(overflow)
+
+    def match(seg_src, seg_dst, translation_frame, cfg, **kw):
+        res = orig(seg_src, seg_dst, translation_frame, cfg, **kw)
+        jax.debug.callback(record, translation_frame, res.overflow)
+        return res
+
+    shard.match_frame_pair = match
+    try:
+        yield
+    finally:
+        shard.match_frame_pair = orig
+
+
+def sharded():
+    """``cli.run --dp 2 --cp 2`` over seed 7 with GT poses: the meters, the
+    labelled clusters and the overflow of each frame pair."""
+    from icpflow_tpu import cli
+    from icpflow_tpu.config import PipelineConfig
+    from icpflow_tpu.data.pca import DatasetPCA
+    assert len(jax.devices()) >= 4, jax.devices()
+    cfg = PipelineConfig(**dataclasses.asdict(
+        chip_smoke.offline_config(False)))
+    overflows = {}
+    with pair_overflows(overflows):
+        meters, data, pairs, seconds, lines = chip_smoke.run_offline(
+            cli, DatasetPCA, cfg, chip_smoke.SEED, False,
+            extra=chip_smoke.SHARDED_ARGV)
+    assert any("sharded step over mesh dp=2 cp=2" in ln for ln in lines)
+    _, clusters = chip_smoke.offline_counts(pairs)
+    tfs = [round(float(np.float32(max(
+        cfg.speed * j, float(np.linalg.norm(data["ego_poses"][j][:3, 3])))
+        * 2.0)), 5) for j in range(1, cfg.num_frames)]
+    m = dict(meters={k: meters[k] for k in chip_smoke.offline_meter_names()},
+             clusters=clusters, overflow=[overflows[tf] for tf in tfs],
+             seconds=round(seconds, 1))
+    print(f"sharded: {json.dumps(m)}", flush=True)
+    return m
+
+
 def main():
     jax.config.update("jax_platforms", "cpu")
     from icpflow_tpu.config import PipelineConfig
+
+    if "--sharded" in sys.argv:
+        print(json.dumps({"jax_backend": jax.default_backend(),
+                          "jax": jax.__version__,
+                          "sharded_reference": sharded()}))
+        return
 
     if "--hdbscan" in sys.argv:
         print(json.dumps({"jax_backend": jax.default_backend(),
