@@ -43,6 +43,18 @@ meters with the clusters per pair. About an hour on the same host (jax
 0.9.0; 5-7 minutes a pair, 27 for the voxel-hash pair, 18 for the offline
 sample: XLA:CPU sweeps every slot of the 32,768-slot representative
 bucket, and sorts every point's 5,184 voxel-hash candidates).
+
+    for p in 7 8 9 ego; do python3 tests/torch_smoke_reference.py --heldout $p; done
+
+runs instead the JAX bench's held-out protocols, ``bench.heldout_eval`` at
+``bench.make_cfg()``, a scene a process (one process for all of them runs
+out of memory mappings in its XLA:CPU compilations): seeds 7 and 8 as
+5-frame waymo-like scenes (gaps 1-4) and seed 9 as an 11-frame
+nuScenes-like scene (``speed=0.833333``, gaps 1-10), with GT poses, and
+``ego``, the estimated-ego protocol on seed 7 (``use_kiss_icp=True``, the
+odometry at the cut capacities, fill counts checked). Prints what
+``chip_smoke.JAX_HELDOUT_REFERENCE`` pins: each scene's per-gap EPE3D,
+dynamic and static EPE and ACC3DS.
 """
 
 from __future__ import annotations
@@ -303,6 +315,40 @@ def sharded():
     return m
 
 
+HELDOUT_PARTS = ("7", "8", "9", "ego")
+
+
+def heldout(part):
+    """One part of the JAX bench's held-out protocols at
+    ``bench.make_cfg()``: the waymo-like scene of seed 7 or 8, the
+    nuScenes-like scene of seed 9 (``bench.heldout_eval``'s default
+    protocols, one scene at a time), or ``ego``, the estimated-ego protocol
+    on seed 7 (the odometry at the cut capacities, fill counts checked)."""
+    import bench
+    cfg = bench.make_cfg()
+    base = cfg.replace(dataset="waymo", range_x=32.0, range_y=32.0,
+                       range_z=-1.6, ground_slack=0.3)
+    protocols = {
+        "7": ("waymo_like", base.replace(num_frames=5), (7,)),
+        "8": ("waymo_like", base.replace(num_frames=5), (8,)),
+        "9": ("nuscene_like", base.replace(num_frames=11, speed=0.833333),
+              (9,)),
+        "ego": ("waymo_like_ego_est", base.replace(
+            num_frames=5, use_kiss_icp=True, **STREAM_CAPACITY), (7,))}
+    proto = protocols[part]
+    fills = []
+    t0 = time.time()
+    with ego_fills(proto[1], fills):
+        res = bench.heldout_eval(cfg, protocols=[proto])
+    assert all(f < proto[1].ego_map_capacity
+               and n < proto[1].ego_src_capacity for f, n in fills)
+    res.update(seconds=round(time.time() - t0, 1),
+               map_fill=[f for f, _ in fills],
+               src_points=[n for _, n in fills])
+    print(f"heldout {part}: {json.dumps(res)}", flush=True)
+    return res
+
+
 def main():
     jax.config.update("jax_platforms", "cpu")
     from icpflow_tpu.config import PipelineConfig
@@ -313,6 +359,12 @@ def main():
                           "sharded_reference": sharded()}))
         return
 
+    if "--heldout" in sys.argv:
+        part = sys.argv[sys.argv.index("--heldout") + 1]
+        print(json.dumps({"jax_backend": jax.default_backend(),
+                          "jax": jax.__version__,
+                          "heldout_reference": {part: heldout(part)}}))
+        return
     if "--hdbscan" in sys.argv:
         print(json.dumps({"jax_backend": jax.default_backend(),
                           "jax": jax.__version__,
