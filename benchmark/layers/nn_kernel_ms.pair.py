@@ -1,0 +1,8 @@
+"""Device ms a call in the NN kernel (masked_nn_kernel, nn_finish_kernel),
+from the profiled calls."""
+from benchmark import readings
+
+
+def read(rec):
+    prof = readings.profile(rec, "pair")
+    return None if prof is None else prof["nn_kernel_s"] * 1e3 / prof["calls"]
