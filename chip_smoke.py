@@ -104,12 +104,9 @@ table as JSON, and ``{"ok": true, "device": {...}}``.
     (seed 9's worst gap printed), make no plain NN call, and give
     ``kernel_plain_max_err`` 0 and ``0 < nn_util_vs_bound <= 1.05``.
 
-``python3 chip_smoke.py --profile`` instead profiles one warm stream frame
-under each policy with ``torch.profiler`` (device busy and idle share, the
-exact sweep's share) and prints no result line; ``python3 chip_smoke.py
---offline``, ``--hdbscan``, ``--sharded`` and ``--bench`` run only the
-offline, the hdbscan or the sharded path or the bench after the build, and
-print none either.
+``python3 chip_smoke.py --offline``, ``--hdbscan``, ``--sharded`` and
+``--bench`` run only the offline, the hdbscan or the sharded path or the
+bench after the build, and print no result line.
 """
 
 from __future__ import annotations
@@ -792,17 +789,10 @@ def _device_ms(fn, iters=10):
 
 
 def _valid_pairs(form, src, mask, src_mask=None):
-    """(src, dst) pairs a sweep over these inputs needs: valid src times
-    valid dst, summed over the batch rows. The sentinel forms keep every
-    dst a candidate. One device read."""
-    import torch
-    b, n, _ = src.shape
-    sv = (torch.full((b,), float(n), dtype=torch.float64, device=src.device)
-          if src_mask is None else src_mask.sum(1).double())
-    dv = (torch.full((b,), float(mask.shape[1]), dtype=torch.float64,
-                     device=src.device)
-          if form == "sentinel" else mask.sum(1).double())
-    return float((sv * dv).sum())
+    """(src, dst) pairs a sweep over these inputs needs
+    (``knn.valid_pairs``, summed over the batch rows). One device read."""
+    from icpflow_tpu_torch.ops import knn
+    return float(knn.valid_pairs(form, src, mask, src_mask).sum())
 
 
 def _bound(form, points, src, mask, src_mask=None):
@@ -2251,62 +2241,6 @@ def phase_launch_table(rows, counted):
         rows[name]["times"] = entries + rows[name]["times"]
 
 
-def phase_profile(card, frame=3):
-    """``torch.profiler`` (CPU + CUDA) around one warm stream frame under
-    each policy: wall, device busy and idle share, kernels, and the share of
-    the odometry's exact NN sweep (the split launches of the kernel, their
-    scratch fill not counted)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from icpflow_tpu_torch import StreamingEngine
-    cfg = bench_config()
-    scans = stream_frames()[0]
-    _run_stream(cfg, scans[:2])
-    for variant in ("vpu2", "auto"):
-        with _nn_variant(variant):
-            eng = StreamingEngine(cfg, estimate_ego=True)
-            for scan in scans[:frame]:
-                eng.process(scan)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                eng.process(scans[frame])
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        check(kern, "the profiler saw no device activity")
-        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-        by_name = {}
-        for e in kern:
-            c, t = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (c + 1, t + e.time_range.elapsed_us() / 1e3)
-        nn = {k: v for k, v in by_name.items() if "masked_nn_kernel" in k}
-
-        def mode(kernel):        # masked_nn_kernel<form, points, mode>
-            args = re.search(r"masked_nn_kernel<([^>]*)>", kernel).group(1)
-            return re.sub(r"\(\w+\)", "", args.split(",")[2]).strip()
-
-        split = [v for k, v in nn.items() if mode(k) == "1"]
-        cluster = [v for k, v in nn.items() if mode(k) == "2"]
-        finish = by_name.get(next((k for k in by_name
-                                   if "nn_finish_kernel" in k), ""), (0, 0.0))
-        print(f"[profile {variant}] frame {frame}: wall {wall:.1f} ms | device "
-              f"busy {busy:.1f} ms idle share {1 - busy / wall:.3f} | "
-              f"{len(kern)} device activities | NN sweeps "
-              f"{sum(c for c, _ in nn.values())} launches "
-              f"{sum(t for _, t in nn.values()):.3f} ms, of them over a "
-              f"cluster {sum(c for c, _ in cluster)} launches "
-              f"{sum(t for _, t in cluster):.3f} ms and the split "
-              f"exact sweep {sum(c for c, _ in split)} launches "
-              f"{sum(t for _, t in split):.3f} ms, plus its finish pass "
-              f"{finish[0]} launches {finish[1]:.3f} ms | {card}", flush=True)
-        for name, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
-            print(f"[profile {variant}]   {t:9.3f} ms {c:6d} x {name[:110]}",
-                  flush=True)
-
-
 # the fields of bench.py's line (four renamed: kern_nn_vpu_ms,
 # kern_nn_mxu_ms, pallas_xla_max_err, compile_s) and those the port adds
 BENCH_FIELDS = (
@@ -2411,9 +2345,6 @@ def main():
     t0 = time.time()
     card = phase_environment()
     phase_build()
-    if "--profile" in sys.argv[1:]:
-        phase_profile(card)
-        return 0
     if "--offline" in sys.argv[1:]:
         phase_offline(card)
         return 0

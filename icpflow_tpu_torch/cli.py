@@ -141,7 +141,7 @@ def _run_pairs_sharded(engine, step, dp, cfg, data, pairs,
     and returns (per-pair flows trimmed to their point counts, the metric
     sums over the mesh, per-pair overflow). ``ms``, when a dict, receives
     the ``pad``, ``broadcast`` and ``step`` milliseconds."""
-    clock = StageClock(ms, engine.device)
+    clock = StageClock(ms, engine.device, "offline.sharded")
     clock.mark("pad")
     ego_poses = data["ego_poses"]
     ti = data["time_indice"]
@@ -309,7 +309,7 @@ def _run(args, cfg: PipelineConfig, timings, ranks) -> dict:
                       f"epe={dev_sums[1] / max(dev_sums[0], 1):.5f}")
         for j, pair in ([] if step is not None else enumerate(pairs, 1)):
             pair_ms = None if timings is None else {}
-            clock = StageClock(pair_ms, engine.device)
+            clock = StageClock(pair_ms, engine.device, "offline.pair")
             clock.mark("pad")
             # per-pair dynamic search radius, main.py:200
             tf = max(cfg.speed * j,

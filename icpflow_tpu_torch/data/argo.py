@@ -94,7 +94,8 @@ class DatasetArgo(PrefetchIterMixin):
     def _prepare(self, data, clock=None):
         from ..device import StageClock
         from .pca import DatasetPCA
-        clock = clock or StageClock(self.timings, self.device)
+        clock = clock or StageClock(self.timings, self.device,
+                                    "offline.sample")
         data["ego_poses"] = data["ego_motion_gt"]
         # AV2 exports are already ground-filtered; all points non-ground
         # (dataset_argo.py:140)

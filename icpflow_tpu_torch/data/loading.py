@@ -58,7 +58,8 @@ class PrefetchIterMixin:
         pool = PrefetchPool(paths, workers=workers, depth=depth)
         try:
             for k in indices:
-                clock = StageClock(self.timings, self.device)
+                clock = StageClock(self.timings, self.device,
+                                   "offline.sample")
                 clock.mark("load")
                 d = next(pool, None)
                 if d is None:

@@ -202,7 +202,8 @@ class DatasetPCA(PrefetchIterMixin):
         return out
 
     def _prepare(self, data, clock=None):
-        clock = clock or StageClock(self.timings, self.device)
+        clock = clock or StageClock(self.timings, self.device,
+                                    "offline.sample")
         clock.mark("ground")
         nonground = self.ground_removal(data)
         clock.mark("ego")

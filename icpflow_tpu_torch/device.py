@@ -8,10 +8,9 @@ usable raises.
 
 from __future__ import annotations
 
-import time
-from typing import Optional
-
 import torch
+
+from .trace import StageClock  # noqa: F401  (re-exported)
 
 DEFAULT_DEVICE = "cuda"
 
@@ -25,32 +24,3 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
                            "torch.cuda.is_available() is False; pass "
                            "device=\"cpu\" for the plain PyTorch versions")
     return dev
-
-
-class StageClock:
-    """Per-stage milliseconds into ``out``: CUDA events on a CUDA device
-    (read after one synchronize at the end), host clock on the CPU."""
-
-    def __init__(self, out: Optional[dict], device: torch.device):
-        self.out = out
-        self.cuda = device.type == "cuda"
-        self.marks = []
-
-    def mark(self, name: str):
-        if self.out is None:
-            return
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append((name, ev))
-        else:
-            self.marks.append((name, time.perf_counter()))
-
-    def finish(self):
-        if self.out is None or not self.marks:
-            return
-        if self.cuda:
-            torch.cuda.synchronize()
-        for (name, a), (_, b) in zip(self.marks, self.marks[1:]):
-            self.out[name] = (a.elapsed_time(b) if self.cuda
-                              else (b - a) * 1e3)

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import trace as _trace
 from ..config import PipelineConfig
 from ..ops import geometry as geo
 from ..ops import hist as _hist
@@ -66,21 +67,26 @@ def hist_icp(src_xyz, src_mask, dst_xyz, dst_mask, translation_frame,
     a_mask = torch.where(sw2, dst_mask, src_mask)
     b_mask = torch.where(sw2, src_mask, dst_mask)
 
-    init = _hist.estimate_init_translation(
-        a_xyz, a_mask, b_xyz, b_mask, translation_frame,
-        bin_w=cfg.hist_bin, lxy=lxy or cfg.hist_grid_xy, lz=cfg.hist_grid_z,
-        topk=cfg.hist_topk, nms_kernel=cfg.hist_nms_kernel,
-        eval_tile=cfg.nn_tile, yaws=cfg.hist_yaws,
-        coarse_cap=cfg.hist_coarse_cap, refine=cfg.hist_refine,
-        yaw_per_m=cfg.hist_yaw_per_m, yaw_scale_cap=cfg.hist_yaw_scale_cap)
-    T = _icp.apply_icp(
-        a_xyz, a_mask, b_xyz, b_mask, init,
-        _coarse_on(translation_frame, cfg),
-        thres=cfg.thres_dist, max_iters=cfg.icp_max_iters, tile=cfg.nn_tile,
-        patience=cfg.icp_patience, stall_rel=cfg.icp_stall_rel,
-        corr_cap=cfg.icp_corr_cap, coarse_iters=cfg.icp_coarse_iters,
-        coarse_scale=cfg.icp_coarse_scale, init_margin=cfg.icp_init_margin,
-        init_margin_rel=cfg.icp_init_margin_rel)
+    with _trace.span("icpflow.hist_init"):
+        init = _hist.estimate_init_translation(
+            a_xyz, a_mask, b_xyz, b_mask, translation_frame,
+            bin_w=cfg.hist_bin, lxy=lxy or cfg.hist_grid_xy,
+            lz=cfg.hist_grid_z, topk=cfg.hist_topk,
+            nms_kernel=cfg.hist_nms_kernel, eval_tile=cfg.nn_tile,
+            yaws=cfg.hist_yaws, coarse_cap=cfg.hist_coarse_cap,
+            refine=cfg.hist_refine, yaw_per_m=cfg.hist_yaw_per_m,
+            yaw_scale_cap=cfg.hist_yaw_scale_cap)
+    with _trace.span("icpflow.icp"):
+        T = _icp.apply_icp(
+            a_xyz, a_mask, b_xyz, b_mask, init,
+            _coarse_on(translation_frame, cfg),
+            thres=cfg.thres_dist, max_iters=cfg.icp_max_iters,
+            tile=cfg.nn_tile, patience=cfg.icp_patience,
+            stall_rel=cfg.icp_stall_rel, corr_cap=cfg.icp_corr_cap,
+            coarse_iters=cfg.icp_coarse_iters,
+            coarse_scale=cfg.icp_coarse_scale,
+            init_margin=cfg.icp_init_margin,
+            init_margin_rel=cfg.icp_init_margin_rel)
     return torch.where(sw3, geo.invert_rigid(T), T)
 
 
@@ -222,6 +228,7 @@ def _run_stage(seg_src: SegmentBatch, seg_dst: SegmentBatch,
         kept += rows.numel()                         # reference's stable sort
         if rows.numel() == 0:
             continue
+        _trace.count("match_pairs", rows.numel())
         Tb, sb, ab, ib = _solve_bucket(seg_src, seg_dst, pair_src[rows],
                                        pair_dst[rows], translation_frame,
                                        cfg, n_points)

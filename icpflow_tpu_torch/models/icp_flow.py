@@ -129,23 +129,24 @@ class SceneFlowEngine:
         """The main path for one ego-aligned frame pair: joint clustering,
         matching, flow. ``timings``, when given, receives the milliseconds
         of the ``cluster``, ``track`` and ``flow`` stages, and
-        ``cluster_info`` the clusterer's own."""
+        ``cluster_info`` the clusterer's own; the call is then traced as
+        ``icpflow.pair`` unless a traced call is already open."""
         if pose is None:
             pose = np.eye(4, dtype=np.float32)
-        clock = StageClock(timings, self.device)
-        clock.mark("cluster")
-        lab_dst, lab_src = self.cluster_joint(pts_dst, valid_dst, pts_src,
-                                              valid_src,
-                                              timed=timings is not None)
-        clock.mark("track")
-        out = self.track_pair(pts_src, valid_src, lab_src, pts_dst,
-                              valid_dst, lab_dst, translation_frame)
-        clock.mark("flow")
-        flow = self.flow(pts_src, lab_src, out.result.transforms, pose,
-                         seg_pidx=out.seg_src.pidx,
-                         identity_pt=out.result.identity_pt)
-        clock.mark("end")
-        clock.finish()
+        with StageClock(timings, self.device, "pair") as clock:
+            clock.mark("cluster")
+            lab_dst, lab_src = self.cluster_joint(
+                pts_dst, valid_dst, pts_src, valid_src,
+                timed=timings is not None)
+            clock.mark("track")
+            out = self.track_pair(pts_src, valid_src, lab_src, pts_dst,
+                                  valid_dst, lab_dst, translation_frame)
+            clock.mark("flow")
+            flow = self.flow(pts_src, lab_src, out.result.transforms, pose,
+                             seg_pidx=out.seg_src.pidx,
+                             identity_pt=out.result.identity_pt)
+            clock.mark("end")
+            clock.finish()
         return FusedPairOutput(flow, out, lab_src, lab_dst)
 
     # -- host helpers -----------------------------------------------------

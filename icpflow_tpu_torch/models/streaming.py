@@ -62,51 +62,54 @@ class StreamingEngine:
         ``pose`` overrides ego estimation (world <- sensor). Returns None for
         the very first frame (no pair yet). ``timings``, when given,
         receives the milliseconds of the ``ego`` and ``ground`` stages and,
-        from the second frame on, ``cluster``, ``track`` and ``flow``.
+        from the second frame on, ``cluster``, ``track`` and ``flow``, and
+        the call is traced as ``icpflow.frame``
+        (``icpflow_tpu_torch.trace``).
         """
         cfg = self.cfg
         eng = self.engine
-        clock = StageClock(timings, self.device)
-        scan = np.asarray(scan, np.float32)[:, :3]
+        with StageClock(timings, self.device, "frame") as clock:
+            scan = np.asarray(scan, np.float32)[:, :3]
 
-        clock.mark("ego")
-        if pose is None and self.odo is not None:
-            pose = self.odo.register_frame(scan)
-        if pose is None:
-            pose = np.eye(4, dtype=np.float32)
-        pose = np.asarray(pose, np.float32)
+            clock.mark("ego")
+            if pose is None and self.odo is not None:
+                pose = self.odo.register_frame(scan)
+            if pose is None:
+                pose = np.eye(4, dtype=np.float32)
+            pose = np.asarray(pose, np.float32)
 
-        clock.mark("ground")
-        world = scan @ pose[:3, :3].T + pose[:3, 3]
-        p, v = eng.pad_cloud(world)
-        pts = eng._tensor(p, torch.float32)
-        valid = eng._tensor(v, torch.bool)
-        ng = segment_ground(pts, valid, range_z=cfg.range_z,
-                            ground_slack=cfg.ground_slack)
+            clock.mark("ground")
+            world = scan @ pose[:3, :3].T + pose[:3, 3]
+            p, v = eng.pad_cloud(world)
+            pts = eng._tensor(p, torch.float32)
+            valid = eng._tensor(v, torch.bool)
+            ng = segment_ground(pts, valid, range_z=cfg.range_z,
+                                ground_slack=cfg.ground_slack)
 
-        prev = self._prev
-        self._prev = (pts, valid, ng)
-        if prev is None:
+            prev = self._prev
+            self._prev = (pts, valid, ng)
+            if prev is None:
+                clock.mark("end")
+                clock.finish()
+                return None
+
+            pts_prev, valid_prev, ng_prev = prev
+            clock.mark("cluster")
+            # joint clustering: previous frame is "dst", new frame is "src"
+            lab_dst, lab_src = eng.cluster_joint(
+                pts_prev, valid_prev & ng_prev, pts, valid & ng)
+            clock.mark("track")
+            out = eng.track_pair(pts, valid, lab_src, pts_prev, valid_prev,
+                                 lab_dst, cfg.translation_frame(1))
+            clock.mark("flow")
+            # flow in world coordinates of the new frame vs the previous one
+            flow = eng.flow(pts, lab_src, out.result.transforms,
+                            np.eye(4, dtype=np.float32),
+                            seg_pidx=out.seg_src.pidx,
+                            identity_pt=out.result.identity_pt)
             clock.mark("end")
             clock.finish()
-            return None
-
-        pts_prev, valid_prev, ng_prev = prev
-        clock.mark("cluster")
-        # joint clustering: previous frame is "dst", new frame is "src"
-        lab_dst, lab_src = eng.cluster_joint(pts_prev, valid_prev & ng_prev,
-                                             pts, valid & ng)
-        clock.mark("track")
-        out = eng.track_pair(pts, valid, lab_src, pts_prev, valid_prev,
-                             lab_dst, cfg.translation_frame(1))
-        clock.mark("flow")
-        # flow in world coordinates of the new frame vs the previous one
-        flow = eng.flow(pts, lab_src, out.result.transforms,
-                        np.eye(4, dtype=np.float32),
-                        seg_pidx=out.seg_src.pidx,
-                        identity_pt=out.result.identity_pt)
-        clock.mark("end")
-        clock.finish()
-        return StreamOutput(flow=flow.cpu().numpy()[:len(scan)], pose=pose,
-                            pairs=eng.pairs_array(out.result),
-                            labels=lab_src.cpu().numpy()[:len(scan)])
+            return StreamOutput(
+                flow=flow.cpu().numpy()[:len(scan)], pose=pose,
+                pairs=eng.pairs_array(out.result),
+                labels=lab_src.cpu().numpy()[:len(scan)])

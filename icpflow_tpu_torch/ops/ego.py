@@ -20,6 +20,7 @@ from typing import List
 import numpy as np
 import torch
 
+from .. import trace as _trace
 from ..config import PipelineConfig
 from ..device import DEFAULT_DEVICE, resolve_device
 from . import geometry as geo
@@ -66,6 +67,7 @@ def voxel_downsample_mask(xyz: torch.Tensor, valid: torch.Tensor, *,
     return keep & valid
 
 
+@_trace.spanned("icpflow.ego.register")
 def register_frame_icp(source: torch.Tensor, source_valid: torch.Tensor,
                        map_pts: torch.Tensor, map_valid: torch.Tensor,
                        initial_guess: torch.Tensor, max_dist: float,
@@ -129,6 +131,7 @@ def register_frame_icp(source: torch.Tensor, source_valid: torch.Tensor,
         while it < iters:
             pose, delta = step(pose, full_dof)
             it += 1
+            _trace.count("ego_iters")
             if not bool(delta > 1e-4):                 # one host read
                 break
         return pose

@@ -14,6 +14,8 @@ import math
 import numpy as np
 import torch
 
+from .. import trace as _trace
+
 _EPS = 1e-9
 
 
@@ -119,6 +121,7 @@ def _norm(x: torch.Tensor, dim: int = -1, keepdim: bool = False):
     return torch.sqrt(torch.sum(x * x, dim=dim, keepdim=keepdim))
 
 
+@_trace.spanned("icpflow.kabsch")
 def kabsch(src: torch.Tensor, dst: torch.Tensor,
            weights: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Weighted least-squares rigid alignment ``R @ src + t ~= dst``.

@@ -192,7 +192,7 @@ def hdbscan(xyz: torch.Tensor, valid: torch.Tensor, cfg: PipelineConfig,
     valid = valid.to(torch.bool)
     ms = {}
     clock = StageClock(ms if timed and info is not None else None,
-                       xyz.device)
+                       xyz.device, "hdbscan")
     graph_info = {}
 
     def report(path, n_unique=None):

@@ -6,13 +6,16 @@ run a wide-gate coarse phase first. The reference's ``lax.while_loop`` and
 its tail compaction become one eager loop in which every iteration runs
 only the rows that are not yet frozen: rows are independent, and a frozen
 row's pose and best pose never change, so this is the same computation.
-The all-frozen exit test is one host read per iteration.
+The all-frozen exit test is one host read per iteration. A traced call
+counts the iterations (``icp_iters``) and makes each a span
+``icpflow.icp.iter``; the exit test's read falls in the enclosing span.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import trace as _trace
 from . import geometry as geo
 from . import knn as _knn
 
@@ -54,42 +57,44 @@ def icp_core(src: torch.Tensor, src_mask: torch.Tensor, dst: torch.Tensor,
         rows = torch.nonzero(~frozen)[:, 0]
         if rows.numel() == 0:
             break
-        s, sm = src[rows], src_mask[rows]
-        moved = torch.einsum("bij,bnj->bni", R_cur[rows], s) \
-            + t_cur[rows][:, None, :]
-        # only rows under ``sm`` are read below (``inlier``): the sweep
-        # skips the others, which changes no bit of the result
-        nn_pts, dist = _knn.masked_nn_points(moved, dst[rows], dst_mask[rows],
-                                             tile=tile, src_mask=sm)
-        fine = it >= eff
-        thr = thres if fine else thres * coarse_scale
-        inlier = (dist <= thr) & sm
-        R, t = geo.kabsch(s, nn_pts, inlier)
-        moved2 = torch.einsum("bij,bnj->bni", R, s) + t[:, None, :]
-        sq = torch.sum((moved2 - nn_pts) ** 2, dim=-1)
-        w = inlier.to(f32)
-        rmse = torch.sqrt(torch.sum(sq * w, 1)
-                          / torch.clamp(torch.sum(w, 1), min=1e-9))
+        with _trace.span("icpflow.icp.iter"):
+            _trace.count("icp_iters")
+            s, sm = src[rows], src_mask[rows]
+            moved = torch.einsum("bij,bnj->bni", R_cur[rows], s) \
+                + t_cur[rows][:, None, :]
+            # only rows under ``sm`` are read below (``inlier``): the sweep
+            # skips the others, which changes no bit of the result
+            nn_pts, dist = _knn.masked_nn_points(
+                moved, dst[rows], dst_mask[rows], tile=tile, src_mask=sm)
+            fine = it >= eff
+            thr = thres if fine else thres * coarse_scale
+            inlier = (dist <= thr) & sm
+            R, t = geo.kabsch(s, nn_pts, inlier)
+            moved2 = torch.einsum("bij,bnj->bni", R, s) + t[:, None, :]
+            sq = torch.sum((moved2 - nn_pts) ** 2, dim=-1)
+            w = inlier.to(f32)
+            rmse = torch.sqrt(torch.sum(sq * w, 1)
+                              / torch.clamp(torch.sum(w, 1), min=1e-9))
 
-        prev = best_rmse[rows]
-        first = it == eff
-        if fine:
-            take = torch.ones_like(rmse, dtype=torch.bool) if first \
-                else rmse < prev
-            meaningful = take if first else \
-                (prev - rmse) > stall_rel * torch.clamp(prev, min=1e-20)
-            st = torch.where(meaningful, torch.zeros_like(stale[rows]),
-                             stale[rows] + 1)
-            tk = take[:, None]
-            best_R[rows] = torch.where(tk[:, :, None], R, best_R[rows])
-            best_t[rows] = torch.where(tk, t, best_t[rows])
-            best_rmse[rows] = torch.where(take, rmse, prev)
-        else:
-            st = torch.zeros_like(stale[rows])
-        stale[rows] = st
-        frozen[rows] = st >= patience
-        R_cur[rows] = R
-        t_cur[rows] = t
+            prev = best_rmse[rows]
+            first = it == eff
+            if fine:
+                take = torch.ones_like(rmse, dtype=torch.bool) if first \
+                    else rmse < prev
+                meaningful = take if first else \
+                    (prev - rmse) > stall_rel * torch.clamp(prev, min=1e-20)
+                st = torch.where(meaningful, torch.zeros_like(stale[rows]),
+                                 stale[rows] + 1)
+                tk = take[:, None]
+                best_R[rows] = torch.where(tk[:, :, None], R, best_R[rows])
+                best_t[rows] = torch.where(tk, t, best_t[rows])
+                best_rmse[rows] = torch.where(take, rmse, prev)
+            else:
+                st = torch.zeros_like(stale[rows])
+            stale[rows] = st
+            frozen[rows] = st >= patience
+            R_cur[rows] = R
+            t_cur[rows] = t
     return geo.rt_to_mat(best_R, best_t)
 
 

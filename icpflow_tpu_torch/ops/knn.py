@@ -35,6 +35,7 @@ import os
 
 import torch
 
+from .. import trace as _trace
 from .cuda import nn_kernel as _cuda
 
 _BIG = 1e30
@@ -166,7 +167,28 @@ def masked_nn_plain(src: torch.Tensor, dst: torch.Tensor,
     return pts, dist
 
 
+def valid_pairs(form: str, src: torch.Tensor, dst_mask: torch.Tensor,
+                src_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """(B,) (src, dst) candidates a sweep needs, on the inputs' device:
+    valid src (all N without ``src_mask``) times valid dst; the sentinel
+    form keeps every dst a candidate. At most three small device ops."""
+    b, n, _ = src.shape
+    m = dst_mask.shape[1]
+    if form == "sentinel":
+        if src_mask is None:
+            return torch.full((b,), n * m, dtype=torch.int64,
+                              device=src.device)
+        return src_mask.sum(1, dtype=torch.int64) * m
+    dv = dst_mask.sum(1, dtype=torch.int64)
+    if src_mask is None:
+        return dv * n
+    return src_mask.sum(1, dtype=torch.int64) * dv
+
+
 def _sweep(src, dst, dst_mask, *, form, points, tile, src_mask=None):
+    if _trace.current() is not None:
+        _trace.count(f"nn_valid.{form}.{'points' if points else 'index'}",
+                     valid_pairs(form, src, dst_mask, src_mask))
     if src.is_cuda:
         return _cuda.masked_nn_cuda(
             src.float().contiguous(), dst.float().contiguous(),

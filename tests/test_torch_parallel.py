@@ -37,7 +37,6 @@ from icpflow_tpu.match import matcher as jmatcher  # noqa: E402
 from icpflow_tpu.parallel import shard as jshard  # noqa: E402
 from icpflow_tpu.parallel.mesh import make_mesh as jmake_mesh  # noqa: E402
 from icpflow_tpu.utils import plot as jplot  # noqa: E402
-from icpflow_tpu.utils import timer as jtimer  # noqa: E402
 from icpflow_tpu.utils import viz3d as jviz3d  # noqa: E402
 
 from icpflow_tpu_torch import cli as tcli  # noqa: E402
@@ -378,19 +377,6 @@ def test_run_scaling_fields_and_counts():
 
 # -- utils ----------------------------------------------------------------
 def test_section_timer_and_profile_trace(tmp_path):
-    timer = ttimer.SectionTimer()
-    assert not timer.sync              # no card here
-    for _ in range(2):
-        with timer.section("a"):
-            torch.ones(8).sum()
-    with timer.section("b"):
-        pass
-    assert timer.counts == {"a": 2, "b": 1}
-    jt = jtimer.SectionTimer(sync=False)
-    jt.totals.update({"a": 1.25, "b": 0.5})
-    jt.counts.update({"a": 2, "b": 1})
-    timer.totals.update({"a": 1.25, "b": 0.5})
-    assert timer.report() == jt.report()
     with ttimer.profile_trace(None):
         pass
     with ttimer.profile_trace(str(tmp_path)):
