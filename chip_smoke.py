@@ -6,7 +6,8 @@ Phases, one line each, any failure ends with a non-zero exit:
 
 1. environment: torch / CUDA / nvcc versions and the card's name and power
    limit; a GPU is required;
-2. build: compile the NN kernel library from ``icpflow_tpu_torch/csrc``;
+2. build: compile the kernel library from ``icpflow_tpu_torch/csrc`` (the
+   NN sweep and Kabsch's solve);
 3. kernel vs plain: all six kernel instantiations against the plain
    PyTorch version at the main paths' shapes (the stream's exact odometry
    sweep included) and, 20 times over, at edge cases (an empty row,
@@ -22,6 +23,16 @@ Phases, one line each, any failure ends with a non-zero exit:
    for bit. The nominal index rows are timed at every cluster size.
    Kernel, plain version and the library call (``torch.cdist`` + ``min``,
    timed only) by CUDA events, beside the bound on the valid pairs;
+3b. Kabsch: the ``kabsch_solve`` kernel against the plain solve
+   (``geometry._kabsch_solve_plain``) bit for bit, R and t: every kind of
+   ``kabsch_cases`` alone at B = 1, the kinds mixed at every B of
+   ``KABSCH_SIZES`` (1 to 4096), and 100,000 random covariances; no host
+   sync in a whole ``geometry.kabsch`` call. After the stream path, the
+   kernel, the card's solve (the kernel and the einsums) and the plain
+   solve are timed at the batch sizes the pair and stream paths launched
+   most (eager; device: replayed from a CUDA graph, and for the plain
+   solve, which synchronizes and cannot be captured, the sum of its device
+   kernels under ``torch.profiler``), beside the empty kernel;
 4. frame-pair path: ``run_frame_pair`` at the bench configuration on the
    synthetic held-out scene (seed 7, gaps 1 and 4, ~74k points per frame),
    twice per pair; the flow is checked against the GT flow and against the
@@ -79,7 +90,8 @@ Phases, one line each, any failure ends with a non-zero exit:
 
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after; they show it went through the kernels and never through
-the plain NN version, and they are the launches the kernel table reports. The last lines are the card (nvidia-smi), the kernel
+the plain NN version nor the plain Kabsch solve (phases 4-7), and they are
+the launches the kernel table reports. The last lines are the card (nvidia-smi), the kernel
 table as JSON, and ``{"ok": true, "device": {...}}``.
 
 9. sharded path: the collectives on CUDA tensors (two ranks; each op the
@@ -104,13 +116,15 @@ table as JSON, and ``{"ok": true, "device": {...}}``.
     (seed 9's worst gap printed), make no plain NN call, and give
     ``kernel_plain_max_err`` 0 and ``0 < nn_util_vs_bound <= 1.05``.
 
-``python3 chip_smoke.py --offline``, ``--hdbscan``, ``--sharded`` and
-``--bench`` run only the offline, the hdbscan or the sharded path or the
-bench after the build, and print no result line.
+``python3 chip_smoke.py --offline``, ``--hdbscan``, ``--sharded``,
+``--bench`` and ``--kabsch`` run only the offline, the hdbscan or the
+sharded path, the bench or the Kabsch check (timed at B = 1 and 64) after
+the build, and print no result line.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import io
@@ -674,7 +688,8 @@ def phase_build():
     from icpflow_tpu_torch.ops.cuda import nn_kernel
     path = nn_kernel.build(force=True)
     nn_kernel.load()
-    print(f"[build] {path.name} from {SOURCE} in "
+    print(f"[build] {path.name} from "
+          f"{', '.join(p.name for p in nn_kernel.sources())} in "
           f"{nn_kernel.build_seconds:.2f} s", flush=True)
     # ptxas -v: registers and spills of every instantiation
     # masked_nn_kernel<form, points output, mode> (mode 0: one pass, 1: dst
@@ -687,7 +702,8 @@ def phase_build():
     by_regs = {}
     for sym, stack, st, ld, regs in entries:
         t = re.search(r"masked_nn_kernelILi(\d)ELb([01])ELi(\d)E", sym)
-        other = re.search(r"nn_finish_kernel|empty_kernel", sym)
+        other = re.search(r"nn_finish_kernel|empty_kernel|kabsch_solve",
+                          sym)
         check(t or other, f"ptxas -v names an unknown kernel {sym}")
         tag = other.group(0) if t is None else "<{},{},{}>".format(*t.groups())
         check(int(st) == 0 and int(ld) == 0, f"{tag} spills registers")
@@ -1298,13 +1314,296 @@ def phase_kernels():
     return rows
 
 
+# ------------------------------------------------------------------ Kabsch
+KABSCH_KINDS = ("normal", "fractional", "identity", "exact", "far", "empty",
+                "below_one", "one_point", "two_points", "coincident",
+                "collinear", "coplanar", "reflected", "huge", "tiny", "nan",
+                "inf")
+KABSCH_POINTS = 64
+KABSCH_SIZES = (1, 2, 3, 7, 8, 14, 31, 56, 127, 128, 129, 300, 1000, 2048,
+                4095, 4096)
+KABSCH_RANDOM_ROWS = 100_000
+
+
+def _rotation(rng, scale=None):
+    """A random rotation; one within about ``scale`` radians of the
+    identity where ``scale`` is given."""
+    q = (rng.normal(size=4) if scale is None else
+         np.concatenate([[1.0], rng.normal(scale=scale / 2, size=3)]))
+    w, x, y, z = q / np.linalg.norm(q)
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+        [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+        [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]])
+
+
+def kabsch_cases(b, seed, first=0):
+    """Correspondences for ``geometry.kabsch``: src, dst (b, 64, 3) and
+    weights (b, 64), float32. Row r is of kind
+    ``KABSCH_KINDS[(first + r) % len(KABSCH_KINDS)]``: a rigid motion with
+    noise, fractional weights, the identity, an exact motion, an ICP-like
+    small motion 20 m out, and the degenerate and non-finite inputs (no
+    weight, a total below one point, one or two points, coincident,
+    collinear, coplanar and mirrored clouds, coordinates near 1e18 and
+    1e-18, a NaN in src, an inf in dst)."""
+    rng = np.random.default_rng(seed)
+    n = KABSCH_POINTS
+    src = np.zeros((b, n, 3))
+    dst = np.zeros((b, n, 3))
+    w = np.zeros((b, n))
+    for r in range(b):
+        kind = KABSCH_KINDS[(first + r) % len(KABSCH_KINDS)]
+        x = rng.normal(size=(n, 3)) * rng.uniform(0.2, 3.0, 3)
+        rot, tr = _rotation(rng), rng.uniform(-2.0, 2.0, 3)
+        wr = (rng.random(n) < 0.8).astype(np.float64)
+        noise = 0.01
+        if kind == "fractional":
+            wr = rng.random(n)
+        elif kind == "identity":
+            rot, tr, noise = np.eye(3), np.zeros(3), 0.0
+        elif kind == "exact":
+            noise = 0.0
+        elif kind == "far":
+            x = x + [18.0, -9.0, 0.5]
+            rot, tr = _rotation(rng, 0.02), rng.normal(scale=0.05, size=3)
+        elif kind == "empty":
+            wr[:] = 0.0
+        elif kind == "below_one":
+            wr[:] = 0.5 / n
+        elif kind == "one_point":
+            wr[:] = 0.0
+            wr[0] = 1.0
+        elif kind == "two_points":
+            wr[:] = 0.0
+            wr[:2] = 1.0
+        elif kind == "coincident":
+            x[:] = x[0]
+            noise = 0.0
+        elif kind == "collinear":
+            x = x[0] + rng.normal(size=(n, 1)) * rng.normal(size=3)
+            noise = 0.0
+        elif kind == "coplanar":
+            x[:, 2] = 0.0
+            x = x @ _rotation(rng).T
+            noise = 0.0
+        elif kind == "huge":
+            x = x * 1e18
+            tr = tr * 1e18
+        elif kind == "tiny":
+            x = x * 1e-18
+            tr, noise = tr * 1e-18, 0.0
+        y = x @ rot.T + tr + rng.normal(scale=noise, size=(n, 3))
+        if kind == "reflected":
+            y = x * [1.0, 1.0, -1.0] + tr
+        elif kind == "nan":
+            x[3, 1] = np.nan
+        elif kind == "inf":
+            y[5, 0] = np.inf
+        src[r], dst[r], w[r] = x, y, wr
+    with np.errstate(over="ignore"):
+        return (src.astype(np.float32), dst.astype(np.float32),
+                w.astype(np.float32))
+
+
+def kabsch_random_moments(rows, seed):
+    """Random inputs of the solve itself: H (rows,3,3) of entries spread
+    over 12 decades, a twentieth of the rows structured (zero, diagonal
+    with tied entries, rank one, a NaN or an inf), the weight total (a
+    tenth exactly 0 or 1) and the centroids, float32."""
+    rng = np.random.default_rng(seed)
+    H = rng.normal(size=(rows, 3, 3)) * 10.0 ** rng.uniform(
+        -3, 3, (rows, 1, 1)) * 10.0 ** rng.uniform(-3, 3, (rows, 3, 3))
+    k = rows // 100
+    H[:k] = 0.0
+    d = rng.normal(size=(k, 1))
+    H[k:2 * k] = np.eye(3) * np.concatenate([d, d, rng.normal(size=(k, 1))],
+                                             1)[:, None, :]
+    H[2 * k:3 * k] = (rng.normal(size=(k, 3, 1))
+                      * rng.normal(size=(k, 1, 3)))
+    H[3 * k:4 * k, 1, 2] = np.nan
+    H[4 * k:5 * k, 0, 0] = np.inf
+    total = rng.uniform(0.0, 3.0, rows)
+    total[5 * k:10 * k] = rng.choice([0.0, 1.0], 5 * k)
+    mu_s = rng.normal(scale=10.0, size=(rows, 3))
+    mu_d = rng.normal(scale=10.0, size=(rows, 3))
+    perm = rng.permutation(rows)
+    return (H[perm].astype(np.float32), total[perm].astype(np.float32),
+            mu_s[perm].astype(np.float32), mu_d[perm].astype(np.float32))
+
+
+def _kabsch_moments(src, dst, w):
+    import torch
+    from icpflow_tpu_torch.ops import geometry
+    dev = torch.device("cuda")
+    return geometry._kabsch_moments(torch.as_tensor(src, device=dev),
+                                    torch.as_tensor(dst, device=dev),
+                                    torch.as_tensor(w, device=dev))
+
+
+def _kabsch_compare(tag, H, total, mu_s, mu_d):
+    """The card's solve (the kernel and the two einsums) against the plain
+    solve on the same card tensors: 0 differing bits in R and t, or a
+    report and a failure."""
+    import torch
+    from icpflow_tpu_torch.ops import geometry
+    Rk, tk = geometry._kabsch_solve_cuda(H, total, mu_s, mu_d)
+    Rp, tp = geometry._kabsch_solve_plain(H, total, mu_s, mu_d)
+    torch.cuda.synchronize()
+    b = H.shape[0]
+    bad = ((Rk.view(torch.int32) != Rp.view(torch.int32)).reshape(b, -1)
+           .any(1) | (tk.view(torch.int32) != tp.view(torch.int32)).any(1))
+    rows = torch.nonzero(bad)[:, 0].tolist()
+    if rows:
+        for r in rows[:5]:
+            print(f"[kabsch mismatch] {tag} row {r}: H {H[r].tolist()} total "
+                  f"{float(total[r])}\n  kernel R {Rk[r].tolist()} t "
+                  f"{tk[r].tolist()}\n  plain  R {Rp[r].tolist()} t "
+                  f"{tp[r].tolist()}", file=sys.stderr, flush=True)
+    check(not rows, f"[kabsch] {tag}: {len(rows)} of {b} rows differ from "
+          "the plain solve")
+    return b
+
+
+def _kabsch_no_sync():
+    """A whole ``geometry.kabsch`` call on the card makes no host sync."""
+    import torch
+    from icpflow_tpu_torch.ops import geometry
+    src, dst, w = (torch.as_tensor(a, device="cuda")
+                   for a in kabsch_cases(56, 5))
+    geometry.kabsch(src, dst, w)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        geometry.kabsch(src, dst, w)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+
+
+def phase_kabsch():
+    """Phase 3b: ``kabsch_solve`` against the plain solve, bit for bit."""
+    import torch
+    from icpflow_tpu_torch.ops import geometry
+    from icpflow_tpu_torch.ops.cuda import kabsch
+    t0 = time.perf_counter()
+    _reset_counts()
+    rows = calls = 0
+    for k, kind in enumerate(KABSCH_KINDS):
+        rows += _kabsch_compare(f"{kind} B=1", *_kabsch_moments(
+            *kabsch_cases(1, 100 + k, first=k)))
+        calls += 1
+    for b in KABSCH_SIZES:
+        rows += _kabsch_compare(f"mixed B={b}", *_kabsch_moments(
+            *kabsch_cases(b, b)))
+        calls += 1
+    dev = torch.device("cuda")
+    rows += _kabsch_compare("random", *(
+        torch.as_tensor(a, device=dev)
+        for a in kabsch_random_moments(KABSCH_RANDOM_ROWS, 11)))
+    calls += 1
+    check(kabsch.launches == calls and geometry.kabsch_plain_calls == 0,
+          f"[kabsch] {kabsch.launches} launches for {calls} calls")
+    _kabsch_no_sync()
+    print(f"[kabsch] kernel == plain bit for bit, R and t: {rows} rows in "
+          f"{calls} calls ({len(KABSCH_KINDS)} kinds alone, B = "
+          f"{KABSCH_SIZES[0]}..{KABSCH_SIZES[-1]} mixed, "
+          f"{KABSCH_RANDOM_ROWS} random); no host sync in a kabsch call; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+@contextlib.contextmanager
+def _kabsch_batches(sizes):
+    """Counts the batch size of every Kabsch kernel launch into ``sizes``."""
+    from icpflow_tpu_torch.ops.cuda import kabsch
+    launch = kabsch.kabsch_solve_cuda
+
+    def counted(H, *args):
+        sizes[H.shape[0]] += 1
+        return launch(H, *args)
+
+    kabsch.kabsch_solve_cuda = counted
+    try:
+        yield sizes
+    finally:
+        kabsch.kabsch_solve_cuda = launch
+
+
+def _profiled_device_ms(fn, iters=5):
+    """(device ms a call, device kernels a call) of ``fn`` under
+    ``torch.profiler``: the sum of its device activities' durations."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    ns, kernels = 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda and not e.is_user_annotation():
+            ns += e.duration_ns()
+            kernels += not e.name().startswith(("Memcpy", "Memset"))
+    return ns * 1e-6 / iters, kernels / iters
+
+
+def phase_kabsch_times(card, sizes):
+    """The kernel, the card's solve (the kernel and the two einsums) and
+    the plain solve at batch sizes ``sizes`` (the main paths' most
+    frequent), and the whole ``geometry.kabsch`` call."""
+    import torch
+    from icpflow_tpu_torch.ops import geometry
+    from icpflow_tpu_torch.ops.cuda import kabsch, nn_kernel
+    floor = _time_ms(nn_kernel.launch_floor, iters=200)
+    floor_dev = _device_ms(nn_kernel.launch_floor, iters=200)
+    for b in sizes:
+        src, dst, w = (torch.as_tensor(a, device="cuda")
+                       for a in kabsch_cases(b, 7 + b))
+        args = geometry._kabsch_moments(src, dst, w)
+        kernel = functools.partial(kabsch.kabsch_solve_cuda, *args[:2])
+        solve = functools.partial(geometry._kabsch_solve_cuda, *args)
+        plain = functools.partial(geometry._kabsch_solve_plain, *args)
+        k_ms = _time_ms(kernel, iters=200)
+        k_dev = _device_ms(kernel, iters=50)
+        s_ms = _time_ms(solve, iters=200)
+        s_dev = _device_ms(solve, iters=50)
+        s_prof, s_kernels = _profiled_device_ms(solve)
+        p_ms = _time_ms(plain, iters=20)
+        p_prof, p_kernels = _profiled_device_ms(plain)
+        whole = _time_ms(lambda: geometry.kabsch(src, dst, w), iters=100)
+        print(f"[kabsch times] B={b}: kernel {k_ms:.4f} ms (device "
+              f"{k_dev:.4f}) | card solve {s_ms:.4f} ms (device {s_dev:.4f}, "
+              f"profiled {s_prof:.4f}, {s_kernels:.0f} kernels) | plain "
+              f"solve {p_ms:.3f} ms (profiled device {p_prof:.3f}, "
+              f"{p_kernels:.0f} kernels) | launch floor {floor:.4f} (device "
+              f"{floor_dev:.4f}) | whole kabsch call {whole:.4f} ms | {card}",
+              flush=True)
+
+
 def _reset_counts():
-    from icpflow_tpu_torch.ops import knn
-    from icpflow_tpu_torch.ops.cuda import nn_kernel
+    from icpflow_tpu_torch.ops import geometry, knn
+    from icpflow_tpu_torch.ops.cuda import kabsch, nn_kernel
     nn_kernel.launches = 0
     nn_kernel.variant_launches.clear()
     nn_kernel.shape_launches.clear()
     knn.plain_calls = 0
+    kabsch.launches = 0
+    geometry.kabsch_plain_calls = 0
+
+
+def _check_kabsch_counts(tag):
+    """Since ``_reset_counts``: Kabsch ran the kernel, never the plain
+    solve."""
+    from icpflow_tpu_torch.ops import geometry
+    from icpflow_tpu_torch.ops.cuda import kabsch
+    launches, plain = kabsch.launches, geometry.kabsch_plain_calls
+    check(launches > 0 and plain == 0, f"{tag}: {launches} Kabsch kernel "
+          f"launches, {plain} plain Kabsch calls")
+    print(f"[kabsch] {tag}: kernel launches {launches}, plain calls {plain}",
+          flush=True)
 
 
 def _read_counts():
@@ -1341,6 +1640,7 @@ def phase_main_path(card):
     launches, per_kernel, per_shape, plain = _read_counts()
     check(launches > 0, "the frame-pair path launched no NN kernel")
     check(plain == 0, f"the frame-pair path called the plain NN {plain} times")
+    _check_kabsch_counts("frame pairs")
 
     for gap, src, dst, gt, dyn, outs, times in results:
         out = outs[1]
@@ -1450,6 +1750,7 @@ def phase_stream(card):
                   f"{ref['matched']}")
         check(launches > 0 and plain == 0,
               f"{variant} stream: {launches} launches, {plain} plain NN calls")
+        _check_kabsch_counts(f"{variant} stream")
         check(per_kernel.get("nn_elementwise_index", 0) > 0,
               f"{variant} stream: the odometry's exact NN ran no kernel")
         print(f"[stream {variant}] NN kernel launches {launches} "
@@ -1547,6 +1848,7 @@ def phase_offline(card):
               + f" | {card}", flush=True)
         check(launches > 0 and plain == 0,
               f"offline {tag}: {launches} launches, {plain} plain NN calls")
+        _check_kabsch_counts(f"offline {tag}")
         by_shape = ", ".join(f"{k[0]} {k[1]}x{k[2]}x{k[3]}: {c}"
                              for k, c in sorted(per_shape.items()))
         print(f"[launches offline {tag}] NN kernel launches {launches} "
@@ -1798,6 +2100,7 @@ def phase_hdbscan(card):
     launches, per_kernel, per_shape, plain = _read_counts()
     check(launches > 0 and plain == 0, f"hdbscan pairs: {launches} NN "
           f"launches, {plain} plain NN calls")
+    _check_kabsch_counts("hdbscan pairs")
     check(hdbscan.DEDUP_OVERFLOWS == overflows,
           "hdbscan pairs overflowed the representative bucket")
     for gap, src, dst, gt, dyn, tf in pairs:
@@ -1862,6 +2165,7 @@ def phase_hdbscan(card):
         cli, DatasetPCA, offline_config(False).replace(use_hdbscan=True),
         SEED, False, timings=timings)
     launches, _, _, plain = _read_counts()
+    _check_kabsch_counts("offline hdbscan")
     check(len([ln for ln in lines if " EPE3D: " in ln])
           == 6 * (NUM_FRAMES + 1), "offline hdbscan: the report is short")
     _check_offline("seed 7 gt hdbscan", ref["offline"], meters, data,
@@ -2357,9 +2661,19 @@ def main():
     if "--bench" in sys.argv[1:]:
         phase_bench(card)
         return 0
+    phase_kabsch()
+    if "--kabsch" in sys.argv[1:]:
+        phase_kabsch_times(card, (1, 64))
+        return 0
     rows = phase_kernels()
-    per_kernel, pair_shapes = phase_main_path(card)
-    stream_kernel, stream_shapes = phase_stream(card)
+    batches = collections.Counter()
+    with _kabsch_batches(batches):
+        per_kernel, pair_shapes = phase_main_path(card)
+        stream_kernel, stream_shapes = phase_stream(card)
+    print(f"[kabsch] launches by batch size, pair and stream paths: "
+          f"{dict(sorted(batches.items()))}", flush=True)
+    phase_kabsch_times(card, sorted({1} | {b for b, _ in
+                                           batches.most_common(3)}))
     offline_kernel, offline_shapes = phase_offline(card)
     hdbscan_kernel, hdbscan_shapes = phase_hdbscan(card)
     sharded_kernel, sharded_shapes = phase_sharded(card)

@@ -1,10 +1,11 @@
 """Build, bind and launch the Hopper NN kernel (``csrc/nn_kernel.cu``).
 
-The kernel library is compiled with ``nvcc`` at first use, from the source
-in this checkout, into ``icpflow_tpu_torch/build/`` (git-ignored), under a
-name keyed by a hash of the source and the flags, and loaded with
-``ctypes``. Nothing here runs at import: the module imports on a machine
-without CUDA.
+The port's kernel library holds every ``csrc/*.cu`` (this NN sweep and
+Kabsch's solve, ``ops/cuda/kabsch.py``). It is compiled with one ``nvcc``
+call at first use, from the sources in this checkout, into
+``icpflow_tpu_torch/build/`` (git-ignored), under a name keyed by a hash of
+the sources and the flags, and loaded with ``ctypes``. Nothing here runs at
+import: the module imports on a machine without CUDA.
 
 ``launches`` counts kernel launches made through :func:`masked_nn_cuda`,
 ``variant_launches`` counts them per instantiation
@@ -46,7 +47,8 @@ import time
 import torch
 
 _PKG = pathlib.Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "nn_kernel.cu"
+CSRC = _PKG / "csrc"
+SOURCE = CSRC / "nn_kernel.cu"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -94,14 +96,22 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def sources() -> list:
+    """Every CUDA source of the library, in name order."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> pathlib.Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libicpflow_nn_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libicpflow_cuda_{h.hexdigest()[:16]}.so"
 
 
 def build(force: bool = False) -> pathlib.Path:
-    """Compile the kernel library unless an up-to-date one exists.
+    """Compile the kernel library (every source, one nvcc call) unless an
+    up-to-date one exists.
 
     Raises ``RuntimeError`` with the compiler's output if nvcc fails.
     """
@@ -117,7 +127,7 @@ def build(force: bool = False) -> pathlib.Path:
     # a private TMPDIR keeps a concurrent build (another checkout, another
     # pid namespace over the same TMPDIR) from overwriting them
     work = tempfile.mkdtemp(dir=BUILD_DIR)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
@@ -147,6 +157,10 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.icpflow_launch_floor.argtypes = [ctypes.c_void_p]
         lib.icpflow_launch_floor.restype = ctypes.c_int
+        fn = lib.icpflow_kabsch_solve
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] \
+            + [ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 

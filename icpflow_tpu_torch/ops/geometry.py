@@ -15,8 +15,11 @@ import numpy as np
 import torch
 
 from .. import trace as _trace
+from .cuda import kabsch as _cuda_kabsch
 
 _EPS = 1e-9
+
+kabsch_plain_calls = 0          # kabsch calls that took the plain solve
 
 
 def scale_as_xla(x: torch.Tensor, divisor: float,
@@ -132,8 +135,28 @@ def kabsch(src: torch.Tensor, dst: torch.Tensor,
     below one point, coincident or collinear points) fall back to identity
     rotation with a centroid-difference translation.
 
+    The weighted sums over N run in PyTorch for either device. The 3x3
+    solve that follows them runs on a CUDA tensor in
+    :func:`_kabsch_solve_cuda`, one hand-written kernel (``ops/cuda/
+    kabsch.py``; a traced call counts ``kabsch_launches``) and the two 3x3
+    products, and on a CPU tensor in :func:`_kabsch_solve_plain`
+    (``kabsch_plain_calls``); the two agree bit for bit on the card.
+
     Args: src, dst (B,N,3); weights (B,N). Returns R (B,3,3), t (B,3).
     """
+    global kabsch_plain_calls
+    H, total, mu_s, mu_d = _kabsch_moments(src, dst, weights)
+    if H.is_cuda:
+        return _kabsch_solve_cuda(H, total, mu_s, mu_d)
+    kabsch_plain_calls += 1
+    return _kabsch_solve_plain(H, total, mu_s, mu_d)
+
+
+def _kabsch_moments(src: torch.Tensor, dst: torch.Tensor,
+                    weights: torch.Tensor):
+    """The weighted sums over N of :func:`kabsch`: the covariance H
+    (B,3,3), contiguous, the weight total (B,) and the centroids mu_s, mu_d
+    (B,3)."""
     w = weights.to(src.dtype)
     total = torch.sum(w, dim=1)                                  # (B,)
     denom = torch.clamp(total, min=_EPS)[:, None]
@@ -143,7 +166,15 @@ def kabsch(src: torch.Tensor, dst: torch.Tensor,
     cd = dst - mu_d[:, None, :]
     H = torch.einsum("bni,bnj->bij", cs, cd)
     H = H / torch.clamp(total, min=_EPS)[:, None, None]
+    return H.contiguous(), total, mu_s, mu_d
 
+
+def _kabsch_solve_plain(H: torch.Tensor, total: torch.Tensor,
+                        mu_s: torch.Tensor, mu_d: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the 3x3 solve (``csrc/kabsch.cu``): the
+    covariance H (B,3,3), the weight total (B,) and the centroids mu_s,
+    mu_d (B,3) to R (B,3,3) and t (B,3)."""
     U, S, V = _svd3x3_jacobi(H)
     u1 = U[:, :, 0]
     n1 = _norm(u1, dim=1, keepdim=True)
@@ -151,10 +182,10 @@ def kabsch(src: torch.Tensor, dst: torch.Tensor,
     u2 = U[:, :, 1]
     u2 = u2 - torch.sum(u2 * u1, dim=1, keepdim=True) * u1
     n2 = _norm(u2, dim=1, keepdim=True)
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=src.dtype,
-                      device=src.device).expand_as(u1)
-    ez = torch.tensor([0.0, 0.0, 1.0], dtype=src.dtype,
-                      device=src.device).expand_as(u1)
+    ex = torch.tensor([1.0, 0.0, 0.0], dtype=H.dtype,
+                      device=H.device).expand_as(u1)
+    ez = torch.tensor([0.0, 0.0, 1.0], dtype=H.dtype,
+                      device=H.device).expand_as(u1)
     alt = torch.linalg.cross(u1, ex, dim=-1)
     alt2 = torch.linalg.cross(u1, ez, dim=-1)
     alt = torch.where((_norm(alt, dim=1) >= _norm(alt2, dim=1))[:, None],
@@ -170,11 +201,28 @@ def kabsch(src: torch.Tensor, dst: torch.Tensor,
 
     degenerate = ((total < 1.0) | ~torch.isfinite(S).all(dim=1)
                   | (S[:, 0] <= 1e-12) | (n1[:, 0] <= 1e-6))
-    eye = torch.eye(3, dtype=src.dtype, device=src.device).expand_as(R)
+    eye = torch.eye(3, dtype=H.dtype, device=H.device).expand_as(R)
     R = torch.where(degenerate[:, None, None], eye, R)
+    return R, _kabsch_translation(R, mu_s, mu_d)
+
+
+def _kabsch_solve_cuda(H: torch.Tensor, total: torch.Tensor,
+                       mu_s: torch.Tensor, mu_d: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_kabsch_solve_plain` on the card: the kernel gives the factors
+    (the identity twice for a degenerate row, whose R = I I^T is the
+    identity exactly), and R and t come from the same einsums as there:
+    the order in which cuBLAS rounds them changes with the batch size."""
+    Vp, Up = _cuda_kabsch.kabsch_solve_cuda(H, total)
+    R = torch.einsum("bij,bkj->bik", Vp, Up)                     # V @ U^T
+    return R, _kabsch_translation(R, mu_s, mu_d)
+
+
+def _kabsch_translation(R: torch.Tensor, mu_s: torch.Tensor,
+                        mu_d: torch.Tensor) -> torch.Tensor:
+    """t = mu_d - R mu_s, 0 where it is not finite."""
     t = mu_d - torch.einsum("bij,bj->bi", R, mu_s)
-    t = torch.where(torch.isfinite(t), t, torch.zeros_like(t))
-    return R, t
+    return torch.where(torch.isfinite(t), t, torch.zeros_like(t))
 
 
 def euler_zyx_deg(R: torch.Tensor) -> torch.Tensor:
