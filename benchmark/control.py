@@ -34,7 +34,6 @@ def readings(workload, seeds, control_seeds, device="cuda", root=None,
     import torch
 
     from benchmark import check
-    from benchmark.entries import ENTRIES
     from benchmark.harness import reference_outputs
     from benchmark.manifest import Manifest
 
@@ -42,7 +41,7 @@ def readings(workload, seeds, control_seeds, device="cuda", root=None,
     cell = man.cell(workload)
     conf = man.config(cell["config"])
     mix = man.mix(cell["traffic"])
-    kind = ENTRIES[conf["entry"]]
+    kind = man.entry(conf["entry"])
     gen = man.generator(mix)
     entry = kind(conf, mix, device)
     for side, seed_list in (("program", seeds), ("control", control_seeds)):
@@ -59,9 +58,9 @@ def readings(workload, seeds, control_seeds, device="cuda", root=None,
             if side == "program":
                 outs = {k: entry.call(k, item, None) for k, item in calls}
             else:
-                outs = reference_outputs(conf, mix, items, keys, device,
-                                         tf32=True)
-            refs = reference_outputs(conf, mix, items, keys, device,
+                outs = reference_outputs(kind, conf, mix, items, keys,
+                                         device, tf32=True)
+            refs = reference_outputs(kind, conf, mix, items, keys, device,
                                      tf32=False)
             rows = [check.compare(outs[k], refs[k]) for k in keys]
             yield dict(side=side, seed=seed, outputs=len(rows),

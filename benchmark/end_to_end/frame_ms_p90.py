@@ -4,6 +4,6 @@ from benchmark import stats
 
 
 def read(rec):
-    if rec.get("entry") != "stream" or not rec.get("latency_ms"):
+    if rec.get("unit") != "frame" or not rec.get("latency_ms"):
         return None
     return stats.percentile(rec["latency_ms"], 90)

@@ -3,6 +3,6 @@ from benchmark import stats
 
 
 def read(rec):
-    if rec.get("entry") != "stream":
+    if rec.get("unit") != "frame":
         return None
-    return stats.rate(rec["calls"], rec["window_s"])
+    return stats.rate(rec["units"], rec["window_s"])

@@ -3,6 +3,6 @@ from benchmark import stats
 
 
 def read(rec):
-    if rec.get("entry") != "pair":
+    if rec.get("unit") != "pair":
         return None
-    return stats.rate(rec["calls"], rec["window_s"])
+    return stats.rate(rec["units"], rec["window_s"])

@@ -27,7 +27,6 @@ import sys
 import time
 
 from . import check, trace
-from .entries import ENTRIES
 from .manifest import Manifest
 
 PROFILE_AT = 0.4
@@ -53,6 +52,7 @@ def _window(entry, items, seconds, traced, device, keep_rng):
     import torch
     sched = entry.schedule(items)
     seen = set()
+    units = 0
     lat, outs, stages, host = [], [], [], []
     prof, profiled, done = None, 0, not traced
     t_start = time.perf_counter()
@@ -77,6 +77,7 @@ def _window(entry, items, seconds, traced, device, keep_rng):
             out = entry.call(key, item, timings)
         t1 = time.perf_counter()
         lat.append((t1 - t0) * 1e3)
+        units += entry.units(key, item)
         if key not in seen or keep_rng.random() < KEEP_SHARE:
             seen.add(key)
             outs.append((key, out))
@@ -93,8 +94,9 @@ def _window(entry, items, seconds, traced, device, keep_rng):
     if prof is not None:
         cuda = torch.autograd.DeviceType.CUDA
         profile = trace.summarize(prof.profiler.kineto_results.events(), cuda)
-    return dict(window_s=window_s, calls=len(lat), latency_ms=lat,
-                stages=stages, host_ms=host, profile=profile), outs
+    return dict(window_s=window_s, calls=len(lat), units=units,
+                latency_ms=lat, stages=stages, host_ms=host,
+                profile=profile), outs
 
 
 def run_cell(workload: str, seed: int, seconds: float, trace_on: bool,
@@ -112,7 +114,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace_on: bool,
     mix = man.mix(cell["traffic"])
     limits = man.limits(workload)
     items = man.generator(mix).make(mix, seed)
-    entry = ENTRIES[conf["entry"]](conf, mix, device)
+    kind = man.entry(conf["entry"])
+    entry = kind(conf, mix, device)
     is_cuda = torch.device(device).type == "cuda"
     if is_cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -134,7 +137,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace_on: bool,
     finally:
         gc.enable()
         gc.unfreeze()
-    record.update(entry=conf["entry"], setup_s=setup_s)
+    record.update(entry=conf["entry"], unit=kind.unit, root=kind.root,
+                  setup_s=setup_s)
     log(f"window {record['window_s']:.3f} s, {record['calls']} calls")
     peak = torch.cuda.max_memory_allocated() if is_cuda else 0
 
@@ -150,7 +154,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace_on: bool,
     if is_cuda:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    refs = reference_outputs(conf, mix, items, [k for k, _ in outs],
+    refs = reference_outputs(kind, conf, mix, items, [k for k, _ in outs],
                              device, tf32=False)
     rows = [check.compare(o, refs[k]) for k, o in outs]
     numbers, failed = check.judge(rows, limits)
@@ -174,13 +178,15 @@ def run_cell(workload: str, seed: int, seconds: float, trace_on: bool,
     return dict(line=line, record=record)
 
 
-def reference_outputs(conf, mix, items, keys, device, tf32: bool) -> dict:
-    """The reference's outputs for ``keys``, in float32 or, for the
-    control, with float32 matmuls in TF32."""
+def reference_outputs(kind, conf, mix, items, keys, device,
+                      tf32: bool) -> dict:
+    """The reference's outputs for ``keys`` through the counterpart of the
+    entry ``kind`` (``Manifest.entry``), in float32 or, for the control,
+    with float32 matmuls in TF32."""
     from .reference.engine import Reference, use_tf32
     ref = Reference(conf["pipeline"], device)
     use_tf32(tf32)
     try:
-        return ENTRIES[conf["entry"]].reference(ref, mix, items, keys)
+        return kind.reference(ref, mix, items, keys)
     finally:
         use_tf32(False)

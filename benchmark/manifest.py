@@ -1,10 +1,11 @@
 """Finds what ``BENCHMARK.json`` names, by name: a cell's configuration
-file, its traffic mix (``traffic/<mix>.json``) and the mix's generator
+file and the entry it names (``entries/<entry>.py``), its traffic mix
+(``traffic/<mix>.json``) and the mix's generator
 (``traffic/<generator>.py``), its limits (``limits/<cell>.json``), and
 one reader per metric (``end_to_end/<metric>.py`` or
 ``layers/<metric>.py``, each with ``read(record)``). Adding a cell, a
-configuration, a mix or a metric is adding files and entries; no file
-here changes."""
+configuration, an entry, a mix or a metric is adding files and entries;
+no file here changes."""
 
 from __future__ import annotations
 
@@ -23,6 +24,10 @@ def _load_module(path: pathlib.Path, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _ident(name: str) -> str:
+    return name.replace(".", "_").replace("-", "_")
 
 
 class Manifest:
@@ -47,6 +52,11 @@ class Manifest:
         entry = self._named("configs", name)
         return json.loads((self.root / entry["file"]).read_text())
 
+    def entry(self, name: str):
+        """The class ``Entry`` of ``entries/<name>.py``."""
+        return _load_module(self.bench_dir / "entries" / f"{name}.py",
+                            "bench_entry_" + _ident(name)).Entry
+
     def mix(self, name: str) -> dict:
         return json.loads(
             (self.bench_dir / "traffic" / f"{name}.json").read_text())
@@ -70,6 +80,5 @@ class Manifest:
     def reader(self, metric: str, trace: bool):
         folder = "layers" if trace else "end_to_end"
         mod = _load_module(self.bench_dir / folder / f"{metric}.py",
-                           "bench_reader_" + metric.replace(".", "_")
-                           .replace("-", "_"))
+                           "bench_reader_" + _ident(metric))
         return mod.read

@@ -2,13 +2,15 @@
 
 The program keeps its last traced calls in memory
 (``icpflow_tpu_torch.trace.calls()``). A traced window passes ``timings``
-to every call, so the window's calls are the last ``record["calls"]`` the
-program kept. Time and counter metrics are means over the unprofiled
-calls, which the profiler does not slow, a call without the span or the
-counter counting 0 (as ``readings.stage_ms``); the NN roofline reads the
-profiled calls, whose kernels the profile timed. Each function returns
-None where its record holds nothing to read: another entry's record, an
-untraced run, or a program that keeps no trace of its calls.
+to every call, and each call leaves one record whose root span is the
+entry's ``root`` (``record["root"]``), so the window's calls are the last
+``record["calls"]`` the program kept. Time and counter metrics are means
+over the unprofiled calls, which the profiler does not slow, a call
+without the span or the counter counting 0 (as ``readings.stage_ms``);
+the NN roofline reads the profiled calls, whose kernels the profile
+timed. Each function returns None where its record holds nothing to
+read: another entry's record, an untraced run, or a program that keeps
+no trace of its calls.
 """
 
 from __future__ import annotations
@@ -18,7 +20,6 @@ import pathlib
 
 from . import readings
 
-ROOTS = {"pair": "pair", "stream": "frame"}    # harness entry -> root span
 NN_VALID = "nn_valid."
 
 
@@ -32,7 +33,7 @@ def window_calls(rec: dict, entry: str, profiled: bool = False):
     except ImportError:
         return None
     kept = [c for c in trace.calls()[-int(rec["calls"]):]
-            if c.entry == ROOTS[entry] and c.profiled == profiled]
+            if c.entry == rec["root"] and c.profiled == profiled]
     return kept or None
 
 

@@ -78,7 +78,10 @@ def test_every_file_a_cell_names_is_found(cell):
     man = Manifest()
     w = man.cell(cell)
     conf = man.config(w["config"])
-    assert conf["entry"] in ("pair", "stream")
+    kind = man.entry(conf["entry"])
+    assert kind.unit and kind.root
+    for name in ("schedule", "warm", "call", "spans", "reference", "units"):
+        assert callable(getattr(kind, name))
     mix = man.mix(w["traffic"])
     assert hasattr(man.generator(mix), "make")
     assert man.limits(cell)

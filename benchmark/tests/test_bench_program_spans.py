@@ -83,7 +83,8 @@ def test_means_are_over_the_windows_unprofiled_calls(fake_calls):
         _record("pair", spans={"icpflow.icp": 4e6},
                 counters={"icp_iters": 10},
                 syncs={"icpflow.icp": 4, "icpflow.pair": 6})]
-    rec = dict(entry="pair", calls=3, stages=[{}, {}])
+    rec = dict(entry="pair", unit="pair", root="pair", calls=3, units=3,
+               stages=[{}, {}])
     assert program_spans.span_ms(rec, "pair", "icpflow.icp") == \
         pytest.approx(3.0)
     assert program_spans.span_ms(rec, "pair", "icpflow.kabsch") == \
@@ -101,8 +102,21 @@ def test_means_are_over_the_windows_unprofiled_calls(fake_calls):
 def test_stream_calls_are_the_frames(fake_calls):
     fake_calls += [_record("pair", spans={"icpflow.icp": 1e6}),
                    _record("frame", spans={"icpflow.icp": 3e6})]
-    rec = dict(entry="stream", calls=2, stages=[{}])
+    rec = dict(entry="stream", unit="frame", root="frame", calls=2,
+               units=2, stages=[{}])
     assert program_spans.span_ms(rec, "stream", "icpflow.icp") == 3.0
+
+
+@pytest.mark.parametrize("entry,root,ms", [("stream", "frame", 3.0),
+                                           ("two_pairs", "pair", 1.0)])
+def test_the_root_span_comes_from_the_record(fake_calls, entry, root, ms):
+    """Any entry, a new one too, reads the records of its own root span."""
+    fake_calls += [_record("pair", spans={"icpflow.icp": 1e6}),
+                   _record("frame", spans={"icpflow.icp": 3e6})]
+    rec = dict(entry=entry, unit=root, root=root, calls=2, units=2,
+               stages=[{}])
+    assert program_spans.span_ms(rec, entry, "icpflow.icp") == ms
+    assert program_spans.span_ms(rec, "other", "icpflow.icp") is None
 
 
 def test_nn_roofline_reads_the_profiled_calls(fake_calls):
@@ -116,7 +130,8 @@ def test_nn_roofline_reads_the_profiled_calls(fake_calls):
         _record("pair", profiled=True,
                 counters={"nn_valid.sentinel.points": 1e9})]
     prof = dict(calls=2, busy_s=0.5, window_s=2.0, nn_kernel_s=0.004)
-    rec = dict(entry="pair", calls=3, stages=[{}], profile=prof)
+    rec = dict(entry="pair", unit="pair", root="pair", calls=3, units=3,
+               stages=[{}], profile=prof)
     bound = (nb.bound_ms(1e9, "expanded", False)
              + nb.bound_ms(2e9, "elementwise", True)
              + nb.bound_ms(1e9, "sentinel", True))
@@ -134,9 +149,9 @@ def test_a_program_without_a_trace_reads_nothing(monkeypatch, fake_calls):
     fake_calls.append(_record("pair", spans={"icpflow.icp": 1e6}))
     monkeypatch.delattr(icpflow_tpu_torch, "trace")
     monkeypatch.setitem(sys.modules, "icpflow_tpu_torch.trace", None)
-    rec = dict(entry="pair", calls=3, stages=[{}],
-               profile=dict(calls=2, busy_s=0.5, window_s=2.0,
-                            nn_kernel_s=0.004))
+    rec = dict(entry="pair", unit="pair", root="pair", calls=3, units=3,
+               stages=[{}], profile=dict(calls=2, busy_s=0.5, window_s=2.0,
+                                         nn_kernel_s=0.004))
     assert program_spans.span_ms(rec, "pair", "icpflow.icp") is None
     assert program_spans.counter(rec, "pair", "icp_iters") is None
     assert program_spans.host_syncs(rec, "pair") is None

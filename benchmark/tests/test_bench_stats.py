@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 from benchmark import check, readings, stats, trace
+from benchmark.entries._shared import EntryBase
 
 
 def test_rate_is_over_the_whole_window():
@@ -68,7 +69,7 @@ def test_trace_reduce_on_a_hand_made_timeline():
 
 
 def test_readers_take_means_per_call():
-    rec = dict(entry="stream",
+    rec = dict(entry="stream", unit="frame", root="frame", calls=2, units=2,
                stages=[{"ego": 10.0, "ground": 5.0},
                        {"ego": 20.0, "ground": 5.0, "track": 60.0}],
                host_ms=[16.0, 90.0])
@@ -79,6 +80,34 @@ def test_readers_take_means_per_call():
     assert readings.profile(dict(rec, profile=None), "stream") is None
     no_device = dict(calls=2, busy_s=0.0, window_s=1.0)
     assert readings.profile(dict(rec, profile=no_device), "stream") is None
+
+
+# (record's unit, calls, units): what each end-to-end reader reads
+E2E_CASES = [
+    ("pairs_per_s", "pair", 10, 10, 2.5),
+    ("pairs_per_s", "pair", 10, 20, 5.0),       # units, not calls
+    ("pairs_per_s", "frame", 10, 10, None),
+    ("frames_per_s", "frame", 10, 10, 2.5),
+    ("frames_per_s", "frame", 10, 30, 7.5),
+    ("frames_per_s", "pair", 10, 10, None),
+    ("frame_ms_p90", "frame", 10, 10, 9.1),
+    ("frame_ms_p90", "pair", 10, 10, None),
+    ("setup_s", "pair", 10, 10, 12.5),
+]
+
+
+@pytest.mark.parametrize("metric,unit,calls,units,value", E2E_CASES)
+def test_end_to_end_readers_read_the_records_unit(metric, unit, calls,
+                                                  units, value):
+    from benchmark.manifest import Manifest
+    rec = dict(entry="any", unit=unit, root=unit, calls=calls, units=units,
+               window_s=4.0, latency_ms=[float(x) for x in range(1, 11)],
+               setup_s=12.5)
+    got = Manifest().reader(metric, False)(rec)
+    if value is None:
+        assert got is None
+    else:
+        assert got == pytest.approx(value)
 
 
 def test_label_mismatch_is_blind_to_renaming():
@@ -137,8 +166,10 @@ def test_nn_bound_copy_agrees_with_the_program():
         nn_kernel.io_ms(7, 4096, 4096, True, True)
 
 
-class _FakeEntry:
+class _FakeEntry(EntryBase):
     """Calls of 20 ms with one StageClock-like stage."""
+
+    unit = root = "pair"
 
     def schedule(self, items):
         import itertools
@@ -158,7 +189,7 @@ def test_traced_window_keeps_stages_of_every_unprofiled_call():
     from benchmark import harness
     record, outs = harness._window(_FakeEntry(), [0, 1], 0.5, True, "cpu",
                                    np.random.default_rng(3))
-    assert record["calls"] == len(record["latency_ms"])
+    assert record["calls"] == len(record["latency_ms"]) == record["units"]
     assert len(record["stages"]) == record["calls"] - harness.PROFILED_CALLS
     assert len(record["host_ms"]) == len(record["stages"])
     assert record["profile"]["calls"] == harness.PROFILED_CALLS
