@@ -23,12 +23,13 @@ import json
 import os
 import tempfile
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import trace as _trace
 from .config import PRESETS, PipelineConfig
 from .device import DEFAULT_DEVICE, StageClock, resolve_device
 from .metrics import (CATEGORIES, compute_epe, crop_for_eval, make_meters,
@@ -185,6 +186,124 @@ def _run_pairs_sharded(engine, step, dp, cfg, data, pairs,
     return flows, sums.cpu().numpy(), step.overflow[:n_pairs].tolist()
 
 
+def _frame0_flow(time_indice) -> np.ndarray:
+    """Frame 0's flow: zero, the frame every pair is matched against."""
+    return np.zeros((int((time_indice == 0).sum()), 3), np.float32)
+
+
+def _warn_overflow(overflow: int):
+    if overflow > 0:
+        print(f"  WARNING: {overflow} candidate pairs beyond the pair "
+              f"buckets were dropped (raise --max_pairs / pairs_small)")
+
+
+class SampleResult(NamedTuple):
+    """One sample through :func:`process_sample`."""
+    flow: np.ndarray    # (n, 3): frame 0's zeros, then each pair's flow,
+                        # as --if_save writes it
+    keep: np.ndarray    # (n,) bool: the points the metric sweep scored
+    results: list       # each frame pair's MatchResult, on the device
+    pairs: list         # the sample's prepared pairs, as given
+
+
+def score_sample(cfg: PipelineConfig, data, flow_seq, meters) -> np.ndarray:
+    """The metric protocol over one sample's flow: the eval crop and the
+    category sweep into ``meters`` (utils_eval.py:185-368), traced as
+    span ``icpflow.score`` with counter ``score_points``. Returns the
+    crop mask."""
+    with _trace.span("icpflow.score"):
+        if cfg.eval_ground:
+            keep = np.ones(len(flow_seq), bool)
+        else:
+            keep = crop_for_eval(
+                data["raw_points"], range_x=cfg.range_x, range_y=cfg.range_y,
+                range_z=cfg.range_z, ground_slack=cfg.ground_slack,
+                eval_ground=cfg.eval_ground)
+        update_metrics(
+            meters,
+            flow_pred=flow_seq[keep], flow_gt=data["scene_flow"][keep],
+            sd_labels=data["sd_labels"][keep],
+            fb_labels=data["fb_labels"][keep],
+            time_indice=data["time_indice"][keep], num_frames=cfg.num_frames)
+        _trace.count("score_points", int(keep.sum()))
+    return keep
+
+
+def process_sample(engine: SceneFlowEngine, cfg: PipelineConfig, data,
+                   pairs, meters, timings: Optional[list] = None
+                   ) -> SampleResult:
+    """One prepared sample (a dataset's ``data`` and its frame pairs, frame
+    j against frame 0): each pair matched at its own search radius and its
+    flow computed, then :func:`score_sample`. ``timings``, when a list,
+    receives one dict a pair: the milliseconds of its ``pad``, ``track``
+    and ``flow`` stages. Traced, counts the pairs as ``offline_pairs``."""
+    ego_poses = data["ego_poses"]
+    ti = data["time_indice"]
+    flows = [_frame0_flow(ti)]
+    results = []
+    for j, pair in enumerate(pairs, 1):
+        pair_ms = None if timings is None else {}
+        clock = StageClock(pair_ms, engine.device, "offline.pair")
+        clock.mark("pad")
+        # per-pair dynamic search radius, main.py:200
+        tf = max(cfg.speed * j,
+                 float(np.linalg.norm(ego_poses[j][:3, 3]))) * 2.0
+        p_src, v_src, l_src = engine.pad_cloud(
+            pair["point_src"], pair["label_src"])
+        p_dst, v_dst, l_dst = engine.pad_cloud(
+            pair["point_dst"], pair["label_dst"])
+        clock.mark("track")
+        out = engine.track_pair(p_src, v_src, l_src, p_dst, v_dst, l_dst, tf)
+        clock.mark("flow")
+        raw_src = data["raw_points"][ti == j, :3].astype(np.float32)
+        # note: identity_pt/seg_pidx index the PADDED ego-aligned cloud,
+        # which shares its prefix ordering with raw_src
+        npad = p_src.shape[0]
+        raw_pad = np.zeros((npad, 3), np.float32)
+        raw_pad[: len(raw_src)] = raw_src
+        flow = engine.flow(
+            raw_pad, l_src, out.result.transforms,
+            ego_poses[j].astype(np.float32), seg_pidx=out.seg_src.pidx,
+            identity_pt=out.result.identity_pt
+        ).cpu().numpy()[: len(raw_src)]
+        _warn_overflow(int(out.result.overflow))
+        flows.append(flow)
+        results.append(out.result)
+        clock.mark("end")
+        clock.finish()
+        if timings is not None:
+            timings.append(pair_ms)
+    _trace.count("offline_pairs", len(pairs))
+    flow_seq = np.concatenate(flows)
+    keep = score_sample(cfg, data, flow_seq, meters)
+    return SampleResult(flow_seq, keep, results, pairs)
+
+
+def run_sample(engine: SceneFlowEngine, ds, path: str, meters,
+               timings: Optional[dict] = None) -> SampleResult:
+    """The sample at ``path`` through the offline path, one call: the
+    dataset's loader (``ds.load_raw``) and preparation (ground, ego,
+    joint clustering), then :func:`process_sample`. ``timings``, when a
+    dict, receives each stage's milliseconds summed over the sample
+    (``load``, ``ground``, ``ego``, ``cluster``; ``pad``, ``track``,
+    ``flow`` over its pairs), and the call leaves one trace record, root
+    span ``icpflow.sample``."""
+    traced = timings is not None
+    prep_ms = {} if traced else None
+    pair_ms = [] if traced else None
+    with StageClock(timings, engine.device, "sample"):
+        clock = StageClock(prep_ms, ds.device, "offline.sample")
+        clock.mark("load")
+        data = ds.load_raw(path)
+        data, pairs = ds._prepare(data, clock)
+        res = process_sample(engine, ds.cfg, data, pairs, meters, pair_ms)
+    if traced:
+        for stages in [prep_ms] + pair_ms:
+            for name, ms in stages.items():
+                timings[name] = timings.get(name, 0.0) + ms
+    return res
+
+
 def run(args, timings: Optional[list] = None,
         ranks: Optional[list] = None) -> dict:
     """Process the dataset and return ``{meter name: epe_avg}``.
@@ -288,80 +407,29 @@ def _run(args, cfg: PipelineConfig, timings, ranks) -> dict:
             continue
         pending.append(k)
     for k, data, pairs in ds.iter_samples(pending):
-        ego_poses = data["ego_poses"]
         ti = data["time_indice"]
-        flows = [np.zeros((int((ti == 0).sum()), 3), np.float32)]
         pair_times = []
         sample_ms = None if timings is None else {}
 
         if step is not None:
             pair_flows, dev_sums, overflows = _run_pairs_sharded(
                 engine, step, args.dp, cfg, data, pairs, sample_ms)
-            flows.extend(pair_flows)
             for overflow in overflows:
-                if overflow > 0:
-                    print(f"  WARNING: {overflow} candidate pairs beyond the "
-                          f"pair buckets were dropped (raise --max_pairs / "
-                          f"pairs_small)")
+                _warn_overflow(overflow)
             if args.if_verbose:
                 print(f"  device metric sums (summed over the mesh): "
                       f"n={dev_sums[0]:.0f} "
                       f"epe={dev_sums[1] / max(dev_sums[0], 1):.5f}")
-        for j, pair in ([] if step is not None else enumerate(pairs, 1)):
-            pair_ms = None if timings is None else {}
-            clock = StageClock(pair_ms, engine.device, "offline.pair")
-            clock.mark("pad")
-            # per-pair dynamic search radius, main.py:200
-            tf = max(cfg.speed * j,
-                     float(np.linalg.norm(ego_poses[j][:3, 3]))) * 2.0
-            p_src, v_src, l_src = engine.pad_cloud(
-                pair["point_src"], pair["label_src"])
-            p_dst, v_dst, l_dst = engine.pad_cloud(
-                pair["point_dst"], pair["label_dst"])
-            clock.mark("track")
-            out = engine.track_pair(p_src, v_src, l_src, p_dst, v_dst, l_dst,
-                                    tf)
-            clock.mark("flow")
-            raw_src = data["raw_points"][ti == j, :3].astype(np.float32)
-            # note: identity_pt/seg_pidx index the PADDED ego-aligned cloud,
-            # which shares its prefix ordering with raw_src
-            npad = p_src.shape[0]
-            raw_pad = np.zeros((npad, 3), np.float32)
-            raw_pad[: len(raw_src)] = raw_src
-            flow = engine.flow(
-                raw_pad, l_src, out.result.transforms,
-                ego_poses[j].astype(np.float32), seg_pidx=out.seg_src.pidx,
-                identity_pt=out.result.identity_pt
-            ).cpu().numpy()[: len(raw_src)]
-            overflow = int(out.result.overflow)
-            if overflow > 0:
-                print(f"  WARNING: {overflow} candidate pairs beyond the "
-                      f"pair buckets were dropped (raise --max_pairs / "
-                      f"pairs_small)")
-            flows.append(flow)
-            clock.mark("end")
-            clock.finish()
-            pair_times.append(pair_ms)
+            flow_seq = np.concatenate([_frame0_flow(ti)] + pair_flows)
+            keep = score_sample(cfg, data, flow_seq, meters)
+        else:
+            res = process_sample(engine, cfg, data, pairs, meters,
+                                 None if timings is None else pair_times)
+            flow_seq, keep = res.flow, res.keep
         if timings is not None:
             timings.append(dict(ds.timings, pairs=pair_times))
             if step is not None:
                 timings[-1]["sharded"] = sample_ms
-
-        flow_seq = np.concatenate(flows)
-        # metric protocol: crop + category sweep (utils_eval.py:185-368)
-        if cfg.eval_ground:
-            keep = np.ones(len(flow_seq), bool)
-        else:
-            keep = crop_for_eval(
-                data["raw_points"], range_x=cfg.range_x, range_y=cfg.range_y,
-                range_z=cfg.range_z, ground_slack=cfg.ground_slack,
-                eval_ground=cfg.eval_ground)
-        update_metrics(
-            meters,
-            flow_pred=flow_seq[keep], flow_gt=data["scene_flow"][keep],
-            sd_labels=data["sd_labels"][keep],
-            fb_labels=data["fb_labels"][keep],
-            time_indice=ti[keep], num_frames=cfg.num_frames)
         print(f"Processed sample {k}/{n_samples}, {data['data_path']}")
         if args.resume or args.if_save:
             completed.add(data["data_path"])
@@ -399,7 +467,7 @@ def _run(args, cfg: PipelineConfig, timings, ranks) -> dict:
             path = _flow_path(data["data_path"])
             os.makedirs(os.path.dirname(path), exist_ok=True)
             np.savez_compressed(path, scene_flow=flow_seq,
-                                ego_motion=ego_poses)
+                                ego_motion=data["ego_poses"])
 
     if step is not None:
         stats = stop_ranks(args.device)

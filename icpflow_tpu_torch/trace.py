@@ -1,9 +1,9 @@
 """Stage times, spans and counters of a traced call.
 
 A call of an entry point (``pipeline.run_frame_pair``,
-``SceneFlowEngine.run_pair``, ``StreamingEngine.process``, the offline
-CLI's per-pair and per-sample steps) is traced when its caller passes a
-``timings`` dict. Its outermost :class:`StageClock` then opens the call's
+``SceneFlowEngine.run_pair``, ``StreamingEngine.process``,
+``cli.run_sample``, the offline CLI's per-pair and per-sample steps) is
+traced when its caller passes a ``timings`` dict. Its outermost :class:`StageClock` then opens the call's
 trace and makes it current for the thread; an inner clock (hdbscan's, the
 CLI's, the datasets') joins the trace that is current. Every stage becomes
 a span ``icpflow.<stage>``, and the call itself a root span
@@ -95,8 +95,8 @@ class CallRecord:
     (``pair``, ``frame``, ...); ``device``: its device type (host syncs
     are counted on ``cuda`` only); ``profiled``: whether ``torch.profiler``
     was recording when the call began; ``counters``: name -> total
-    (``icp_iters``, ``ego_iters``, ``match_pairs``, ``host_syncs``,
-    ``nn_valid.<form>.<index|points>``); ``syncs``: span name -> host
+    (``icp_iters``, ``ego_iters``, ``match_pairs``, ``offline_pairs``,
+    ``score_points``, ``host_syncs``, ``nn_valid.<form>.<index|points>``); ``syncs``: span name -> host
     syncs while it was the innermost open span."""
     id: int
     entry: str
