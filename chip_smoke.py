@@ -44,6 +44,20 @@ Phases, one line each, any failure ends with a non-zero exit:
    ``ICPFLOW_NN_VARIANT=vpu2`` (the sentinel kernels) and once under the
    default policy, after a two-frame warm-up; each frame is checked
    against the GT pose and flow and against ``JAX_STREAM_REFERENCE``.
+   In phases 4 and 5 every traced call holds ``kabsch_launches`` to its
+   ``icpflow.kabsch`` spans plus its ICP trips replayed from CUDA graphs
+   (a replay's Kabsch has no span).
+
+5b. ICP graphs: a cold stream of 100 frame pairs, each a dense-mix scene
+   of its own (``benchmark/traffic``), through ``run_frame_pair`` from an
+   empty graph cache, each pair with its ICP trips replayed from CUDA
+   graphs and eagerly (the outputs bit for bit equal): the hit share as
+   the stream goes on, the mean pair time of either, the cache's bytes; at
+   the three most frequent graph keys a replay against the eager trip from
+   the same state, bit for bit, and capture, replay and eager trip
+   milliseconds; a traced pair seen before replays every trip and
+   captures none. In a tree without the graphs (a parent checkout) the
+   eager stream alone, timed.
 
 6. offline path: the port's CLI (``icpflow_tpu_torch.cli.run``: npz
    decode, ``DatasetPCA`` with CZM ground removal, GT or estimated ego
@@ -117,9 +131,9 @@ table as JSON, and ``{"ok": true, "device": {...}}``.
     ``kernel_plain_max_err`` 0 and ``0 < nn_util_vs_bound <= 1.05``.
 
 ``python3 chip_smoke.py --offline``, ``--hdbscan``, ``--sharded``,
-``--bench`` and ``--kabsch`` run only the offline, the hdbscan or the
-sharded path, the bench or the Kabsch check (timed at B = 1 and 64) after
-the build, and print no result line.
+``--bench``, ``--icp-graph`` and ``--kabsch`` run only the offline, the
+hdbscan or the sharded path, the bench, the ICP graph phase or the Kabsch
+check (timed at B = 1 and 64) after the build, and print no result line.
 """
 
 from __future__ import annotations
@@ -1606,6 +1620,27 @@ def _check_kabsch_counts(tag):
           flush=True)
 
 
+def _check_kabsch_trace(tag):
+    """Over the traced calls since ``trace.clear()``: every Kabsch launch
+    is an ``icpflow.kabsch`` span or an ICP trip replayed from a CUDA graph
+    (whose Kabsch has no span): ``kabsch_launches`` == spans + replays."""
+    from icpflow_tpu_torch import trace
+    calls = trace.calls()
+    check(calls, f"{tag}: no traced call")
+    spans = replays = launches = 0
+    for rec in calls:
+        st = rec.spans.get("icpflow.kabsch")
+        spans += st.count if st else 0
+        replays += rec.counters.get("icp_graph_replays", 0)
+        launches += rec.counters.get("kabsch_launches", 0)
+    check(launches == spans + replays and replays > 0,
+          f"{tag}: kabsch_launches {launches} != icpflow.kabsch spans "
+          f"{spans} + replayed trips {replays}")
+    print(f"[kabsch] {tag}: kabsch_launches {launches} == icpflow.kabsch "
+          f"spans {spans} + replayed trips {replays} over {len(calls)} "
+          "traced calls", flush=True)
+
+
 def _read_counts():
     from icpflow_tpu_torch.ops import knn
     from icpflow_tpu_torch.ops.cuda import nn_kernel
@@ -1615,12 +1650,13 @@ def _read_counts():
 
 def phase_main_path(card):
     import torch
-    from icpflow_tpu_torch import SceneFlowEngine, run_frame_pair
+    from icpflow_tpu_torch import SceneFlowEngine, run_frame_pair, trace
     cfg = bench_config()
     engine = SceneFlowEngine(cfg)          # the default device: the card
     check(engine.device.type == "cuda", f"engine on {engine.device}")
     pairs = scene_pairs(cfg)
     _reset_counts()
+    trace.clear()
     results = []
     for gap, src, dst, gt, dyn, tf in pairs:
         outs, times = [], []
@@ -1641,6 +1677,7 @@ def phase_main_path(card):
     check(launches > 0, "the frame-pair path launched no NN kernel")
     check(plain == 0, f"the frame-pair path called the plain NN {plain} times")
     _check_kabsch_counts("frame pairs")
+    _check_kabsch_trace("frame pairs")
 
     for gap, src, dst, gt, dyn, outs, times in results:
         out = outs[1]
@@ -1707,6 +1744,7 @@ def _nn_variant(variant):
 
 def phase_stream(card):
     """The stream path under vpu2 and under the default policy."""
+    from icpflow_tpu_torch import trace
     cfg = bench_config()
     scans, ego_gt, gts, dyns = stream_frames()
     _run_stream(cfg, scans[:2])          # warm-up: solver handles, caches
@@ -1714,6 +1752,7 @@ def phase_stream(card):
     for variant in ("vpu2", "auto"):
         with _nn_variant(variant):
             _reset_counts()
+            trace.clear()
             outs, times = _run_stream(cfg, scans)
             launches, per_kernel, per_shape, plain = _read_counts()
         counts[variant] = per_kernel
@@ -1751,6 +1790,7 @@ def phase_stream(card):
         check(launches > 0 and plain == 0,
               f"{variant} stream: {launches} launches, {plain} plain NN calls")
         _check_kabsch_counts(f"{variant} stream")
+        _check_kabsch_trace(f"{variant} stream")
         check(per_kernel.get("nn_elementwise_index", 0) > 0,
               f"{variant} stream: the odometry's exact NN ran no kernel")
         print(f"[stream {variant}] NN kernel launches {launches} "
@@ -1761,6 +1801,229 @@ def phase_stream(card):
         check(counts["auto"].get(name, 0) == 0,
               f"the default stream launched {name}")
     return counts["vpu2"], shapes
+
+
+ICP_COLD_PAIRS = 100        # distinct frame pairs of the cold stream
+ICP_COLD_SEED = 3120000000  # their seeds: ICP_COLD_SEED + i
+ICP_TIMED_KEYS = 3          # the most frequent graph keys, timed alone
+
+
+def _dense_mix():
+    """(the benchmark's scene generator, its dense mix, the av2_pairs
+    configuration), read from ``benchmark/`` by path."""
+    import importlib.util
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "benchmark")
+    spec = importlib.util.spec_from_file_location(
+        "smoke_scenes", os.path.join(root, "traffic", "scenes.py"))
+    scenes = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(scenes)
+    with open(os.path.join(root, "traffic", "dense.json")) as f:
+        mix = json.load(f)
+    with open(os.path.join(root, "configs", "av2_pairs.json")) as f:
+        conf = json.load(f)
+    return scenes, mix, conf
+
+
+def _cold_pair(scenes, mix, seed):
+    """One frame pair of the dense mix in a scene of its own: the layout
+    and the noise both drawn from ``seed``."""
+    one = dict(mix, scenes=1, extra=dict(mix["extra"], layout_seed=seed))
+    (pair,) = scenes.make(one, seed)
+    return pair
+
+
+@contextlib.contextmanager
+def _eager_trips():
+    """ICP's trips run eagerly inside the block: ``icp_core`` takes its
+    eager path while ``nn_kernel.on_launch`` is set."""
+    from icpflow_tpu_torch.ops.cuda import nn_kernel
+    nn_kernel.on_launch = lambda *args: None
+    try:
+        yield
+    finally:
+        nn_kernel.on_launch = None
+
+
+def _same_outputs(a, b):
+    return all(np.array_equal(np.asarray(x), np.asarray(y))
+               for x, y in zip(a, b))
+
+
+def phase_icp_graph(card, pairs=ICP_COLD_PAIRS):
+    """Phase 5b: ICP's trips replayed from CUDA graphs. A cold stream of
+    ``pairs`` frame pairs, each a dense-mix scene of its own, through
+    ``run_frame_pair`` from an empty graph cache, each pair once with its
+    trips replayed and once eagerly (alternating which goes first): the
+    outputs bit-equal, the hit share as the stream goes on, the mean pair
+    time of either; at the most frequent keys, a replay against the eager
+    trip from the same state (bit for bit), and capture, replay and eager
+    trip milliseconds; the cache's bytes; a traced pair's counts. On a
+    tree without the graphs (a parent checkout), the eager stream alone."""
+    import torch
+    from icpflow_tpu_torch import (SceneFlowEngine, config_from_dict,
+                                   run_frame_pair, trace)
+    from icpflow_tpu_torch.ops import icp
+    graphs = hasattr(icp, "graph_cache")
+    scenes, mix, conf = _dense_mix()
+    cfg = config_from_dict(conf["pipeline"])
+    tf = cfg.translation_frame(int(mix["gap"]))
+    engine = SceneFlowEngine(cfg)
+    check(engine.device.type == "cuda", f"engine on {engine.device}")
+
+    def run(pair):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_frame_pair(engine, pair[0], pair[1], translation_frame=tf)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    warm = _cold_pair(scenes, mix, ICP_COLD_SEED - 1)
+    run(warm)
+    with _eager_trips():
+        run(warm)
+    if not graphs:
+        t0 = time.perf_counter()
+        eager = []
+        for i in range(pairs):
+            eager.append(run(_cold_pair(scenes, mix, ICP_COLD_SEED + i))[1])
+        print(f"[icp_graph cold] no graphs in this tree: {pairs} pairs, "
+              f"mean pair {np.mean(eager):.2f} ms (median "
+              f"{np.median(eager):.2f}), {time.perf_counter() - t0:.1f} s "
+              f"| {card}", flush=True)
+        return
+    icp.clear_graphs()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reserved0 = torch.cuda.memory_reserved()
+    capture, replay = icp._capture, icp._replay
+    captured, replayed, seen = [0], [0], collections.Counter()
+    capture_ms, last = [], {}
+
+    def counted_capture(*args):
+        t0 = time.perf_counter()
+        g = capture(*args)
+        capture_ms.append((time.perf_counter() - t0) * 1e3)
+        captured[0] += 1
+        return g
+
+    def counted_replay(work, phase, thres, coarse_thr, patience, stall_rel,
+                       tile):
+        key = icp.graph_key(work, phase, thres, coarse_thr, patience,
+                            stall_rel)
+        seen[key] += 1
+        last[key] = (work, phase, coarse_thr if phase == icp.COARSE
+                     else thres, patience, stall_rel, tile)
+        replayed[0] += 1
+        return replay(work, phase, thres, coarse_thr, patience, stall_rel,
+                      tile)
+
+    icp._capture, icp._replay = counted_capture, counted_replay
+    t_all = time.perf_counter()
+    rows, graph_ms, eager_ms = [], [], []
+    try:
+        for i in range(pairs):
+            pair = _cold_pair(scenes, mix, ICP_COLD_SEED + i)
+            c0, r0 = captured[0], replayed[0]
+            if i % 2:
+                out_g, ms_g = run(pair)
+            with _eager_trips():
+                out_e, ms_e = run(pair)
+            if not i % 2:
+                out_g, ms_g = run(pair)
+            check(_same_outputs(out_g, out_e),
+                  f"cold pair {i}: replayed and eager trips differ")
+            graph_ms.append(ms_g)
+            eager_ms.append(ms_e)
+            rows.append((captured[0] - c0, replayed[0] - r0))
+    finally:
+        icp._capture, icp._replay = capture, replay
+    torch.cuda.synchronize()
+    caps = np.cumsum([c for c, _ in rows])
+    reps = np.cumsum([r for _, r in rows])
+    curve = " ".join(f"{n}: {1 - caps[n - 1] / reps[n - 1]:.3f}"
+                     for n in sorted({1, 2, 5, 10, 25, 50, 75, 100, pairs})
+                     if n <= pairs)
+    windows = " ".join(
+        f"{a + 1}-{b}: {1 - sum(c for c, _ in rows[a:b]) / max(1, sum(r for _, r in rows[a:b])):.3f}"
+        for a, b in ((0, 10), (10, 25), (25, 50), (50, 100)) if b <= pairs)
+    print(f"[icp_graph cold] {pairs} distinct pairs (seeds {ICP_COLD_SEED}"
+          f"+i, each its own layout): outputs bit-equal replayed vs eager | "
+          f"captures {caps[-1]}, replays {reps[-1]}, trips a pair "
+          f"{reps[-1] / pairs:.1f} | cumulative hit share after n pairs: "
+          f"{curve} | by window: {windows} | {card}", flush=True)
+    print(f"[icp_graph cold] mean pair ms: replayed {np.mean(graph_ms):.2f} "
+          f"(median {np.median(graph_ms):.2f}), eager {np.mean(eager_ms):.2f}"
+          f" (median {np.median(eager_ms):.2f}); pairs 51+: replayed "
+          f"{np.mean(graph_ms[50:] or graph_ms):.2f}, eager "
+          f"{np.mean(eager_ms[50:] or eager_ms):.2f}; capture ms mean "
+          f"{np.mean(capture_ms):.2f} max {np.max(capture_ms):.2f} over "
+          f"{len(capture_ms)}; {time.perf_counter() - t_all:.1f} s | {card}",
+          flush=True)
+    works = {id(w): w for w in icp.graph_cache().values()}
+    print(f"[icp_graph cache] {len(icp.graph_cache())} entries (bound "
+          f"{icp.GRAPH_CACHE}), {len(works)} working sets, "
+          f"{icp.graph_cache_bytes()} B of working sets, largest "
+          f"{max(w.nbytes() for w in works.values())} B; reserved "
+          f"{(torch.cuda.memory_reserved() - reserved0) / 2**20:.1f} MiB more "
+          f"than before the stream; peak allocated over the stream "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+
+    # the most frequent keys: a replay against the eager trip from the same
+    # state, bit for bit; then capture, replay and eager trip times
+    for key, n in seen.most_common(ICP_TIMED_KEYS):
+        work, phase, thr, patience, stall_rel, tile = last[key]
+        g = icp._graphs.get(key)
+        check(g is not None, f"key {key[:5]} left the cache")
+        start = {a: getattr(work, a).clone() for a in icp.STATE}
+
+        def restore():
+            for a, v in start.items():
+                getattr(work, a).copy_(v)
+        icp._trip(work, phase, thr, patience, stall_rel, tile)
+        eager = {a: getattr(work, a).clone() for a in icp.STATE}
+        restore()
+        g.graph.replay()
+        torch.cuda.synchronize()
+        for a in icp.STATE:
+            check(torch.equal(getattr(work, a), eager[a]),
+                  f"key {key[:5]}: replay and eager trip differ in {a}")
+
+        def timed(fn, iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                restore()
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / iters
+
+        rest = timed(lambda: None, 50)
+        rep = timed(g.graph.replay, 50) - rest
+        eag = timed(lambda: icp._trip(work, phase, thr, patience, stall_rel,
+                                      tile), 50) - rest
+        cap = timed(lambda: icp._capture(work, phase, thr, patience,
+                                         stall_rel, tile), 5) - rest
+        restore()
+        print(f"[icp_graph key] (B, N, M) = {key[:3]} {key[4]} {key[5]}: "
+              f"{n} replays in the stream | replay == eager trip bit for "
+              f"bit | capture {cap:.3f} ms, replay {rep:.3f} ms, eager trip "
+              f"{eag:.3f} ms (host clock to a synchronize, each) | {card}",
+              flush=True)
+
+    # a traced pair seen before: every trip a replay, no capture
+    trace.clear()
+    pair = _cold_pair(scenes, mix, ICP_COLD_SEED)
+    run_frame_pair(engine, pair[0], pair[1], translation_frame=tf,
+                   timings={})
+    (rec,) = trace.calls()
+    c = rec.counters
+    check(c.get("icp_graph_captures", 0) == 0
+          and c.get("icp_graph_replays", 0) == c["icp_iters"] > 0,
+          f"traced pair seen before: captures "
+          f"{c.get('icp_graph_captures', 0)}, replays "
+          f"{c.get('icp_graph_replays', 0)}, trips {c['icp_iters']}")
+    _check_kabsch_trace("icp_graph pair")
+    trace.clear()
 
 
 def _check_offline(tag, ref, meters, data, pairs, cluster_band=CLUSTER_BAND):
@@ -2661,6 +2924,9 @@ def main():
     if "--bench" in sys.argv[1:]:
         phase_bench(card)
         return 0
+    if "--icp-graph" in sys.argv[1:]:
+        phase_icp_graph(card)
+        return 0
     phase_kabsch()
     if "--kabsch" in sys.argv[1:]:
         phase_kabsch_times(card, (1, 64))
@@ -2670,6 +2936,7 @@ def main():
     with _kabsch_batches(batches):
         per_kernel, pair_shapes = phase_main_path(card)
         stream_kernel, stream_shapes = phase_stream(card)
+    phase_icp_graph(card)
     print(f"[kabsch] launches by batch size, pair and stream paths: "
           f"{dict(sorted(batches.items()))}", flush=True)
     phase_kabsch_times(card, sorted({1} | {b for b, _ in

@@ -8,7 +8,10 @@ trace and makes it current for the thread; an inner clock (hdbscan's, the
 CLI's, the datasets') joins the trace that is current. Every stage becomes
 a span ``icpflow.<stage>``, and the call itself a root span
 ``icpflow.<entry>``. Code below the stages adds spans with :func:`span`
-and counts with :func:`count`.
+and counts with :func:`count`. While a CUDA graph is captured,
+:func:`recording` sets the thread's call aside and keeps what the captured
+code counts, so that :func:`recount` can add it to the call that replays
+the graph, once a replay.
 
 Untraced, nothing here costs more than an attribute read: :func:`span`
 returns one shared no-op context, :func:`count` returns at once, and no
@@ -36,6 +39,7 @@ first; :func:`clear` empties them. Nothing is written to disk: run under
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import itertools
@@ -96,7 +100,9 @@ class CallRecord:
     are counted on ``cuda`` only); ``profiled``: whether ``torch.profiler``
     was recording when the call began; ``counters``: name -> total
     (``icp_iters``, ``ego_iters``, ``match_pairs``, ``offline_pairs``,
-    ``score_points``, ``host_syncs``, ``nn_valid.<form>.<index|points>``); ``syncs``: span name -> host
+    ``score_points``, ``host_syncs``, ``nn_valid.<form>.<index|points>``,
+    ``kabsch_launches``, ``icp_graph_captures``, ``icp_graph_replays``);
+    ``syncs``: span name -> host
     syncs while it was the innermost open span."""
     id: int
     entry: str
@@ -252,6 +258,55 @@ def count(name: str, n=1):
         call.pending[name].append(n.reshape(-1))
     else:
         call.record.counters[name] += n
+
+
+class Recorded:
+    """What code under :func:`recording` counted: ``counters`` (name ->
+    total of the numbers) and ``pending`` (name -> the tensors, each
+    flattened, which a CUDA graph's replay overwrites). Meanwhile it
+    stands in for the thread's call, as its own ``record``: spans open and
+    close on it untimed."""
+
+    def __init__(self):
+        self.counters = collections.Counter()
+        self.pending = collections.defaultdict(list)
+        self.syncs = collections.Counter()
+        self.stack = []
+        self.root = _Span("icpflow.recording")
+        self.record = self
+
+    def open(self, s: _Span):
+        pass
+
+    def close(self, s: _Span):
+        pass
+
+
+@contextlib.contextmanager
+def recording():
+    """For the capture of a CUDA graph: inside the block the thread's
+    call, traced or not, is set aside; spans are not timed and what is
+    counted goes into the yielded :class:`Recorded`, so that every replay
+    can add it to the call that replays it (:func:`recount`)."""
+    saved = _local.call
+    rec = _local.call = Recorded()
+    try:
+        yield rec
+    finally:
+        _local.call = saved
+
+
+def recount(rec: Recorded):
+    """Adds what a recorded capture counted to the traced call, as one
+    more run of it: the numbers, and a copy of each tensor, taken now
+    (after the replay that wrote it); untraced, returns at once."""
+    if _local.call is None:
+        return
+    for name, n in rec.counters.items():
+        count(name, n)
+    for name, ts in rec.pending.items():
+        for t in ts:
+            count(name, t.clone())
 
 
 def calls() -> list:
