@@ -44,7 +44,7 @@ Phases, one line each, any failure ends with a non-zero exit:
    ``ICPFLOW_NN_VARIANT=vpu2`` (the sentinel kernels) and once under the
    default policy, after a two-frame warm-up; each frame is checked
    against the GT pose and flow and against ``JAX_STREAM_REFERENCE``.
-   In phases 4 and 5 every traced call holds ``kabsch_launches`` to its
+   In phases 4 and 5 every traced call holds ``launches.kabsch_solve`` to its
    ``icpflow.kabsch`` spans plus its ICP trips replayed from CUDA graphs
    (a replay's Kabsch has no span).
 
@@ -102,10 +102,10 @@ Phases, one line each, any failure ends with a non-zero exit:
    every cluster size, and an empty kernel (``launch_floor``) the same two
    ways.
 
-Each path runs with the kernel launch counts set to 0 just before it and
-read just after; they show it went through the kernels and never through
-the plain NN version nor the plain Kabsch solve (phases 4-7), and they are
-the launches the kernel table reports. The last lines are the card (nvidia-smi), the kernel
+Each path runs with the trace's ledger of kernel calls cleared just before
+it and read just after; it shows it went through the kernels and never through
+the plain NN version nor the plain Kabsch solve (phases 4-7), and its
+counts are the launches the kernel table reports. The last lines are the card (nvidia-smi), the kernel
 table as JSON, and ``{"ok": true, "device": {...}}``.
 
 9. sharded path: the collectives on CUDA tensors (two ranks; each op the
@@ -681,8 +681,8 @@ def pair_metrics(flow, gt, dyn, pairs):
 def phase_environment():
     import torch
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
-    from icpflow_tpu_torch.ops.cuda import nn_kernel
-    nvcc = subprocess.run([nn_kernel.find_nvcc(), "--version"],
+    from icpflow_tpu_torch.ops.cuda import library
+    nvcc = subprocess.run([library.find_nvcc(), "--version"],
                           capture_output=True, text=True, check=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -699,19 +699,19 @@ def phase_environment():
 
 
 def phase_build():
-    from icpflow_tpu_torch.ops.cuda import nn_kernel
-    path = nn_kernel.build(force=True)
-    nn_kernel.load()
+    from icpflow_tpu_torch.ops.cuda import library
+    path = library.build(force=True)
+    library.load()
     print(f"[build] {path.name} from "
-          f"{', '.join(p.name for p in nn_kernel.sources())} in "
-          f"{nn_kernel.build_seconds:.2f} s", flush=True)
+          f"{', '.join(p.name for p in library.sources())} in "
+          f"{library.build_seconds:.2f} s", flush=True)
     # ptxas -v: registers and spills of every instantiation
     # masked_nn_kernel<form, points output, mode> (mode 0: one pass, 1: dst
     # split with an atomic merge, 2: dst split over a thread-block cluster)
     entries = re.findall(
         r"Compiling entry function '(\S+)' for 'sm_90a'.*?(\d+) bytes stack "
         r"frame, (\d+) bytes spill stores, (\d+) bytes spill loads.*?Used "
-        r"(\d+) registers", nn_kernel.build_log, flags=re.S)
+        r"(\d+) registers", library.build_log, flags=re.S)
     check(entries, "nvcc printed no ptxas -v lines")
     by_regs = {}
     for sym, stack, st, ld, regs in entries:
@@ -934,9 +934,9 @@ def _time_slices(name, form, points, s, d, mk, fill, src_mask=None):
 def _launch_floor():
     """An empty kernel launched the two ways the sweeps are timed: what any
     launch costs, to read the rows of tiny inputs against."""
-    from icpflow_tpu_torch.ops.cuda import nn_kernel
-    ms = _time_ms(nn_kernel.launch_floor, iters=200)
-    dev = _device_ms(nn_kernel.launch_floor, iters=200)
+    from icpflow_tpu_torch.ops.cuda import library
+    ms = _time_ms(library.launch_floor, iters=200)
+    dev = _device_ms(library.launch_floor, iters=200)
     print(f"[kernel] launch_floor (an empty kernel, one thread): kernel "
           f"{ms:.4f} ms (device {dev:.4f})", flush=True)
 
@@ -1498,8 +1498,7 @@ def _kabsch_no_sync():
 def phase_kabsch():
     """Phase 3b: ``kabsch_solve`` against the plain solve, bit for bit."""
     import torch
-    from icpflow_tpu_torch.ops import geometry
-    from icpflow_tpu_torch.ops.cuda import kabsch
+    from icpflow_tpu_torch import trace
     t0 = time.perf_counter()
     _reset_counts()
     rows = calls = 0
@@ -1516,8 +1515,9 @@ def phase_kabsch():
         torch.as_tensor(a, device=dev)
         for a in kabsch_random_moments(KABSCH_RANDOM_ROWS, 11)))
     calls += 1
-    check(kabsch.launches == calls and geometry.kabsch_plain_calls == 0,
-          f"[kabsch] {kabsch.launches} launches for {calls} calls")
+    counts = trace.launch_counts("kabsch_solve")
+    check(counts == {"kabsch_solve": calls, "kabsch_solve_plain": calls},
+          f"[kabsch] {dict(counts)} for {calls} calls")
     _kabsch_no_sync()
     print(f"[kabsch] kernel == plain bit for bit, R and t: {rows} rows in "
           f"{calls} calls ({len(KABSCH_KINDS)} kinds alone, B = "
@@ -1570,9 +1570,9 @@ def phase_kabsch_times(card, sizes):
     frequent), and the whole ``geometry.kabsch`` call."""
     import torch
     from icpflow_tpu_torch.ops import geometry
-    from icpflow_tpu_torch.ops.cuda import kabsch, nn_kernel
-    floor = _time_ms(nn_kernel.launch_floor, iters=200)
-    floor_dev = _device_ms(nn_kernel.launch_floor, iters=200)
+    from icpflow_tpu_torch.ops.cuda import kabsch, library
+    floor = _time_ms(library.launch_floor, iters=200)
+    floor_dev = _device_ms(library.launch_floor, iters=200)
     for b in sizes:
         src, dst, w = (torch.as_tensor(a, device="cuda")
                        for a in kabsch_cases(b, 7 + b))
@@ -1598,22 +1598,16 @@ def phase_kabsch_times(card, sizes):
 
 
 def _reset_counts():
-    from icpflow_tpu_torch.ops import geometry, knn
-    from icpflow_tpu_torch.ops.cuda import kabsch, nn_kernel
-    nn_kernel.launches = 0
-    nn_kernel.variant_launches.clear()
-    nn_kernel.shape_launches.clear()
-    knn.plain_calls = 0
-    kabsch.launches = 0
-    geometry.kabsch_plain_calls = 0
+    from icpflow_tpu_torch import trace
+    trace.clear_launches()
 
 
 def _check_kabsch_counts(tag):
     """Since ``_reset_counts``: Kabsch ran the kernel, never the plain
     solve."""
-    from icpflow_tpu_torch.ops import geometry
-    from icpflow_tpu_torch.ops.cuda import kabsch
-    launches, plain = kabsch.launches, geometry.kabsch_plain_calls
+    from icpflow_tpu_torch import trace
+    counts = trace.launch_counts("kabsch_solve")
+    launches, plain = counts["kabsch_solve"], counts["kabsch_solve_plain"]
     check(launches > 0 and plain == 0, f"{tag}: {launches} Kabsch kernel "
           f"launches, {plain} plain Kabsch calls")
     print(f"[kabsch] {tag}: kernel launches {launches}, plain calls {plain}",
@@ -1623,7 +1617,8 @@ def _check_kabsch_counts(tag):
 def _check_kabsch_trace(tag):
     """Over the traced calls since ``trace.clear()``: every Kabsch launch
     is an ``icpflow.kabsch`` span or an ICP trip replayed from a CUDA graph
-    (whose Kabsch has no span): ``kabsch_launches`` == spans + replays."""
+    (whose Kabsch has no span): ``launches.kabsch_solve`` == spans +
+    replays."""
     from icpflow_tpu_torch import trace
     calls = trace.calls()
     check(calls, f"{tag}: no traced call")
@@ -1632,20 +1627,23 @@ def _check_kabsch_trace(tag):
         st = rec.spans.get("icpflow.kabsch")
         spans += st.count if st else 0
         replays += rec.counters.get("icp_graph_replays", 0)
-        launches += rec.counters.get("kabsch_launches", 0)
+        launches += rec.counters.get("launches.kabsch_solve", 0)
     check(launches == spans + replays and replays > 0,
-          f"{tag}: kabsch_launches {launches} != icpflow.kabsch spans "
+          f"{tag}: launches.kabsch_solve {launches} != icpflow.kabsch spans "
           f"{spans} + replayed trips {replays}")
-    print(f"[kabsch] {tag}: kabsch_launches {launches} == icpflow.kabsch "
+    print(f"[kabsch] {tag}: launches.kabsch_solve {launches} == icpflow.kabsch "
           f"spans {spans} + replayed trips {replays} over {len(calls)} "
           "traced calls", flush=True)
 
 
 def _read_counts():
-    from icpflow_tpu_torch.ops import knn
-    from icpflow_tpu_torch.ops.cuda import nn_kernel
-    return (nn_kernel.launches, dict(nn_kernel.variant_launches),
-            dict(nn_kernel.shape_launches), knn.plain_calls)
+    """Since ``_reset_counts``: (NN kernel launches, by kernel, by (kernel,
+    B, N, M), plain NN calls)."""
+    from icpflow_tpu_torch import trace
+    return (trace.launch_total("nn_"), dict(trace.launch_counts("nn_")),
+            {(k, *shape): n for (k, shape), n in
+             trace.launch_shapes("nn_").items()},
+            trace.launch_total("masked_nn_plain"))
 
 
 def phase_main_path(card):
@@ -1833,18 +1831,6 @@ def _cold_pair(scenes, mix, seed):
     return pair
 
 
-@contextlib.contextmanager
-def _eager_trips():
-    """ICP's trips run eagerly inside the block: ``icp_core`` takes its
-    eager path while ``nn_kernel.on_launch`` is set."""
-    from icpflow_tpu_torch.ops.cuda import nn_kernel
-    nn_kernel.on_launch = lambda *args: None
-    try:
-        yield
-    finally:
-        nn_kernel.on_launch = None
-
-
 def _same_outputs(a, b):
     return all(np.array_equal(np.asarray(x), np.asarray(y))
                for x, y in zip(a, b))
@@ -1865,6 +1851,7 @@ def phase_icp_graph(card, pairs=ICP_COLD_PAIRS):
                                    run_frame_pair, trace)
     from icpflow_tpu_torch.ops import icp
     graphs = hasattr(icp, "graph_cache")
+    eager_trips = icp.eager_trips if graphs else contextlib.nullcontext
     scenes, mix, conf = _dense_mix()
     cfg = config_from_dict(conf["pipeline"])
     tf = cfg.translation_frame(int(mix["gap"]))
@@ -1879,7 +1866,7 @@ def phase_icp_graph(card, pairs=ICP_COLD_PAIRS):
 
     warm = _cold_pair(scenes, mix, ICP_COLD_SEED - 1)
     run(warm)
-    with _eager_trips():
+    with eager_trips():
         run(warm)
     if not graphs:
         t0 = time.perf_counter()
@@ -1926,7 +1913,7 @@ def phase_icp_graph(card, pairs=ICP_COLD_PAIRS):
             c0, r0 = captured[0], replayed[0]
             if i % 2:
                 out_g, ms_g = run(pair)
-            with _eager_trips():
+            with eager_trips():
                 out_e, ms_e = run(pair)
             if not i % 2:
                 out_g, ms_g = run(pair)
@@ -2646,9 +2633,11 @@ def phase_sharded(card):
 
 
 def _record_launches(run):
-    """Run ``run()`` with the inputs of every NN launch cloned on the card.
+    """Run ``run()`` with the inputs of every NN launch cloned on the card,
+    ICP's trips eager (a replayed trip launches nothing from Python).
     Returns [(kernel name, src, dst, dst_mask, src_mask | None, (dst
     slices, split)), ...]."""
+    from icpflow_tpu_torch.ops import icp
     from icpflow_tpu_torch.ops.cuda import nn_kernel
     rec = []
 
@@ -2658,7 +2647,8 @@ def _record_launches(run):
 
     nn_kernel.on_launch = keep
     try:
-        run()
+        with icp.eager_trips():
+            run()
     finally:
         nn_kernel.on_launch = None
     return rec
@@ -2670,7 +2660,7 @@ def _replay(label, unit, units, rec, counted, reps):
     launches and milliseconds a ``unit`` (the record holds ``units`` of
     them) and returns those rows per kernel name, ranked by the time lost
     against the bound. The launches are not the record's: they are
-    ``counted``, what the wrapper's ``shape_launches`` read after the path's
+    ``counted``, what the trace's ledger of kernel calls read after the path's
     own run, as ({(kernel, B, N, M): launches}, units of that run); the
     record must hold the same launches a unit, or the run fails. ``reps``
     keeps the largest launch of each (kernel, N, M) for the

@@ -59,7 +59,7 @@ import time
 import numpy as np
 import torch
 
-from . import DEMO, SceneFlowEngine
+from . import DEMO, SceneFlowEngine, trace as _trace
 from .data import synthetic
 from .data.pca import DatasetPCA
 from .device import DEFAULT_DEVICE, resolve_device
@@ -333,7 +333,7 @@ def card_line(device) -> tuple:
 
 
 def _counts() -> tuple:
-    return _nn_kernel.launches, _knn.plain_calls
+    return _trace.launch_total("nn_"), _trace.launch_total("masked_nn_plain")
 
 
 def _nn_sweep(src, dst, mask, form):

@@ -343,8 +343,8 @@ def run(args, timings: Optional[list] = None,
             dist.destroy_process_group()
     if n_ranks > 1:
         if torch.device(args.device).type == "cuda":
-            from .ops.cuda import nn_kernel
-            nn_kernel.build()     # once, before the ranks load it
+            from .ops.cuda import library
+            library.build()       # once, before the ranks load it
         with local_world(n_ranks, args.device, serve_pairs,
                          (cfg, args.dp, args.cp, args.device)):
             return _run(args, cfg, timings, ranks)

@@ -1,26 +1,30 @@
 """Bind and launch Kabsch's 3x3 solve (``csrc/kabsch.cu``).
 
 The kernel lives in the port's one kernel library, which
-``ops/cuda/nn_kernel.py`` builds and loads. It takes what
+``ops/cuda/library.py`` builds and loads. It takes what
 ``ops/geometry.py: kabsch`` has reduced from the correspondences (the
 covariance H and the weight total) and returns the two factors of the
 rotation, R = Vp Up^T, in one launch: bit for bit the factors of
 ``geometry._kabsch_solve_plain`` on the card, with the identity in both
 for a degenerate row.
 
-``launches`` counts its launches. Set it to 0 before a run and read it
-after, to show the run went through the kernel. A traced call also counts
-them as ``kabsch_launches``.
+Every launch is counted in the trace's ledger of kernel calls
+(``trace.launch``) as ``kabsch_solve`` with its (B,).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ... import trace as _trace
-from . import nn_kernel
+from . import library
 
-launches = 0
+# the C entry's arguments: H, total; b; Vp, Up, stream
+ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+
+_entry = None            # icpflow_kabsch_solve, bound at the first launch
 
 
 def kabsch_solve_cuda(H: torch.Tensor, total: torch.Tensor
@@ -31,7 +35,7 @@ def kabsch_solve_cuda(H: torch.Tensor, total: torch.Tensor
     Anything else raises ``ValueError``. B = 0 launches nothing. The launch
     goes on the current stream; nothing synchronizes.
     """
-    global launches
+    global _entry
     b = H.shape[0] if H.dim() == 3 else -1
     for name, x, shape in (("H", H, (b, 3, 3)), ("total", total, (b,))):
         if not x.is_cuda:
@@ -51,13 +55,13 @@ def kabsch_solve_cuda(H: torch.Tensor, total: torch.Tensor
     Up = torch.empty((b, 3, 3), dtype=torch.float32, device=H.device)
     if b == 0:
         return Vp, Up
-    lib = nn_kernel.load()
+    if _entry is None:
+        _entry = library.bind("icpflow_kabsch_solve", ARGTYPES)
     with torch.cuda.device(H.device):
         stream = torch.cuda.current_stream(H.device).cuda_stream
-        err = lib.icpflow_kabsch_solve(H.data_ptr(), total.data_ptr(), b,
-                                       Vp.data_ptr(), Up.data_ptr(), stream)
+        err = _entry(H.data_ptr(), total.data_ptr(), b, Vp.data_ptr(),
+                     Up.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"kabsch_solve kernel launch failed: cudaError {err}")
-    launches += 1
-    _trace.count("kabsch_launches")
+    _trace.launch("kabsch_solve", (b,))
     return Vp, Up

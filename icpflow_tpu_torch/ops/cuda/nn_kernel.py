@@ -1,17 +1,10 @@
-"""Build, bind and launch the Hopper NN kernel (``csrc/nn_kernel.cu``).
+"""Bind and launch the Hopper NN kernel (``csrc/nn_kernel.cu``).
 
-The port's kernel library holds every ``csrc/*.cu`` (this NN sweep and
-Kabsch's solve, ``ops/cuda/kabsch.py``). It is compiled with one ``nvcc``
-call at first use, from the sources in this checkout, into
-``icpflow_tpu_torch/build/`` (git-ignored), under a name keyed by a hash of
-the sources and the flags, and loaded with ``ctypes``. Nothing here runs at
-import: the module imports on a machine without CUDA.
-
-``launches`` counts kernel launches made through :func:`masked_nn_cuda`,
-``variant_launches`` counts them per instantiation
-(``nn_{expanded|elementwise|sentinel}_{index|points}``) and
-``shape_launches`` per (instantiation, B, N, M). Set them to 0 before a run
-and read them after, to show the run went through the kernel.
+The kernel lives in the port's one kernel library, which
+``ops/cuda/library.py`` builds and loads; :func:`masked_nn_cuda` binds its
+entry at the first launch. Every launch is counted in the trace's ledger of
+kernel calls (``trace.launch``) as ``nn_{expanded|elementwise|sentinel}_
+{index|points}`` with its (B, N, M).
 
 ``on_launch``, when set to a callable, is called as ``on_launch(name, src,
 dst, dst_mask, src_mask, plan)`` after each launch, ``plan`` being the
@@ -32,26 +25,14 @@ below that.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
-import hashlib
-import os
-import pathlib
-import shutil
 import struct
-import subprocess
-import tempfile
-import time
 
 import torch
 
-_PKG = pathlib.Path(__file__).resolve().parents[2]
-CSRC = _PKG / "csrc"
-SOURCE = CSRC / "nn_kernel.cu"
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from ... import trace as _trace
+from . import library
 
 FORMS = ("expanded", "elementwise", "sentinel")   # the C entry's form codes
 THREADS = 128            # kThreads and kChunk of the source
@@ -72,97 +53,12 @@ _NONE_KEY = int(struct.unpack("<I", struct.pack("<f", 1e30))[0]) << 32
 FP32_LANE_OPS_PER_S = 33.5e12
 HBM_BYTES_PER_S = 3.35e12
 
-launches = 0
-variant_launches: collections.Counter = collections.Counter()
-shape_launches: collections.Counter = collections.Counter()
+# the C entry's arguments: src, dst, dst_mask, src_mask; b, n, m, form,
+# points, split, slices, span; out, dist, keys, stream
+ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4
+
 on_launch = None         # callable(name, src, dst, dst_mask, src_mask, plan)
-build_seconds = None     # wall seconds of the last nvcc build (None: cached)
-build_log = ""           # what that build printed: ptxas -v, per kernel
-_lib = None
-
-
-def find_nvcc() -> str:
-    """Path of ``nvcc``: $CUDA_HOME/bin, then PATH, then /usr/local/cuda."""
-    cands = []
-    if os.environ.get("CUDA_HOME"):
-        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
-    which = shutil.which("nvcc")
-    if which:
-        cands.append(which)
-    cands.append("/usr/local/cuda/bin/nvcc")
-    for c in cands:
-        if os.path.isfile(c) and os.access(c, os.X_OK):
-            return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-
-
-def sources() -> list:
-    """Every CUDA source of the library, in name order."""
-    return sorted(CSRC.glob("*.cu"))
-
-
-def library_path() -> pathlib.Path:
-    h = hashlib.sha256()
-    for src in sources():
-        h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libicpflow_cuda_{h.hexdigest()[:16]}.so"
-
-
-def build(force: bool = False) -> pathlib.Path:
-    """Compile the kernel library (every source, one nvcc call) unless an
-    up-to-date one exists.
-
-    Raises ``RuntimeError`` with the compiler's output if nvcc fails.
-    """
-    global build_seconds, build_log
-    out = library_path()
-    if out.exists() and not force:
-        return out
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    # nvcc names its intermediate files after its pid and the source's name;
-    # a private TMPDIR keeps a concurrent build (another checkout, another
-    # pid namespace over the same TMPDIR) from overwriting them
-    work = tempfile.mkdtemp(dir=BUILD_DIR)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              env=dict(os.environ, TMPDIR=work))
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-        build_log = proc.stderr
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        shutil.rmtree(work, ignore_errors=True)
-    build_seconds = time.perf_counter() - t0
-    return out
-
-
-def load() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.icpflow_masked_nn
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
-            + [ctypes.c_void_p] * 4
-        fn.restype = ctypes.c_int
-        lib.icpflow_launch_floor.argtypes = [ctypes.c_void_p]
-        lib.icpflow_launch_floor.restype = ctypes.c_int
-        fn = lib.icpflow_kabsch_solve
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] \
-            + [ctypes.c_void_p] * 3
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+_entry = None            # icpflow_masked_nn, bound at the first launch
 
 
 @functools.lru_cache(maxsize=None)
@@ -304,7 +200,7 @@ def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
     exists for the index output of the elementwise and sentinel forms only;
     anything else raises ``ValueError``.
     """
-    global launches
+    global _entry
     if form not in FORMS:
         raise ValueError(f"form must be one of {FORMS}, got {form!r}")
     check_plan(form, points, slices, split)
@@ -346,7 +242,8 @@ def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
         out = torch.empty((b, n), dtype=torch.int32, device=src.device)
     if b == 0 or n == 0:
         return out, dist
-    lib = load()
+    if _entry is None:
+        _entry = library.bind("icpflow_masked_nn", ARGTYPES)
     if split is None:
         split = split_kind(form, points, m)
     if slices is None:
@@ -361,7 +258,7 @@ def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
     name = kernel_name(form, points)
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = lib.icpflow_masked_nn(
+        err = _entry(
             src.data_ptr(), dst.data_ptr(), dst_mask.data_ptr(),
             None if src_mask is None else src_mask.data_ptr(), b, n, m,
             FORMS.index(form), int(points), SPLITS.index(split), slices,
@@ -369,18 +266,8 @@ def masked_nn_cuda(src: torch.Tensor, dst: torch.Tensor,
             None if keys is None else keys.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"masked_nn kernel launch failed: cudaError {err}")
-    launches += 1
-    variant_launches[name] += 1
-    shape_launches[(name, b, n, m)] += 1
+    _trace.launch(name, (b, n, m))
     if on_launch is not None:
         on_launch(name, src, dst, dst_mask, src_mask, (slices, split))
     return out, dist
 
-
-def launch_floor() -> None:
-    """Launch the library's empty kernel on the current stream: what any
-    launch costs on this card. A measuring script times it beside the
-    sweeps; it is no kernel of the port's paths and is not counted."""
-    err = load().icpflow_launch_floor(torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"empty kernel launch failed: cudaError {err}")

@@ -19,8 +19,6 @@ from .cuda import kabsch as _cuda_kabsch
 
 _EPS = 1e-9
 
-kabsch_plain_calls = 0          # kabsch calls that took the plain solve
-
 
 def scale_as_xla(x: torch.Tensor, divisor: float,
                  factor: float = 1.0) -> torch.Tensor:
@@ -138,17 +136,16 @@ def kabsch(src: torch.Tensor, dst: torch.Tensor,
     The weighted sums over N run in PyTorch for either device. The 3x3
     solve that follows them runs on a CUDA tensor in
     :func:`_kabsch_solve_cuda`, one hand-written kernel (``ops/cuda/
-    kabsch.py``; a traced call counts ``kabsch_launches``) and the two 3x3
-    products, and on a CPU tensor in :func:`_kabsch_solve_plain`
-    (``kabsch_plain_calls``); the two agree bit for bit on the card.
+    kabsch.py``, ``kabsch_solve`` in the trace's ledger of kernel calls)
+    and the two 3x3 products, and on a CPU tensor in
+    :func:`_kabsch_solve_plain` (``kabsch_solve_plain`` in the ledger); the
+    two agree bit for bit on the card.
 
     Args: src, dst (B,N,3); weights (B,N). Returns R (B,3,3), t (B,3).
     """
-    global kabsch_plain_calls
     H, total, mu_s, mu_d = _kabsch_moments(src, dst, weights)
     if H.is_cuda:
         return _kabsch_solve_cuda(H, total, mu_s, mu_d)
-    kabsch_plain_calls += 1
     return _kabsch_solve_plain(H, total, mu_s, mu_d)
 
 
@@ -175,6 +172,7 @@ def _kabsch_solve_plain(H: torch.Tensor, total: torch.Tensor,
     """Plain PyTorch version of the 3x3 solve (``csrc/kabsch.cu``): the
     covariance H (B,3,3), the weight total (B,) and the centroids mu_s,
     mu_d (B,3) to R (B,3,3) and t (B,3)."""
+    _trace.launch("kabsch_solve_plain", (H.shape[0],))
     U, S, V = _svd3x3_jacobi(H)
     u1 = U[:, :, 0]
     n1 = _norm(u1, dim=1, keepdim=True)

@@ -21,11 +21,11 @@ one replay of a CUDA graph of :func:`_trip`, captured the first time its
 key (:func:`graph_key`: the shape, the device, the phase and the constants
 the graph bakes in) is seen, over working-set buffers shared by the keys
 of one shape; the graphs share one memory pool and the least recently used
-is dropped past :data:`GRAPH_CACHE`. A replay counts the launches the
-capture made (``nn_kernel``'s and ``kabsch``'s counters) and what it
-counted in the trace. While ``nn_kernel.on_launch`` is set, which wants
-each launch's live inputs, the trips run as on the CPU. The cache and its
-working sets belong to the process: one call at a time uses them.
+is dropped past :data:`GRAPH_CACHE`. A replay adds the kernel calls the
+capture made to the trace's ledger, and what it counted to the traced call
+(``trace.recording``, ``trace.recount``). Inside :func:`eager_trips` the
+trips run as on the CPU. The cache and its working sets belong to the
+process: one call at a time uses them.
 
 A traced call counts the trips (``icp_iters``) and makes each a span
 ``icpflow.icp.iter`` (a replay's Kabsch has no span of its own); on a CUDA
@@ -36,6 +36,7 @@ device it counts the captures (``icp_graph_captures``) and the replays
 from __future__ import annotations
 
 import collections
+import contextlib
 import weakref
 
 import torch
@@ -43,8 +44,6 @@ import torch
 from .. import trace as _trace
 from . import geometry as geo
 from . import knn as _knn
-from .cuda import kabsch as _cuda_kabsch
-from .cuda import nn_kernel as _cuda_nn
 
 # Captured trips kept, the least recently used dropped first. An entry is a
 # graph of ~70 kernels and, shared with the other keys of its shape, one
@@ -140,13 +139,27 @@ def graph_key(work: _Work, phase: str, thres: float, coarse_thr: float,
 class _Graph:
     """One captured trip over ``work``: the graph, and what its capture
     launched and counted, which every replay adds again."""
-    __slots__ = ("graph", "work", "nn", "variants", "shapes", "kabsch",
-                 "counted")
+    __slots__ = ("graph", "work", "counted")
 
 
 _graphs: collections.OrderedDict = collections.OrderedDict()
 _works: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
 _streams: dict = {}
+_eager = False           # inside eager_trips()
+
+
+@contextlib.contextmanager
+def eager_trips():
+    """Inside the block :func:`icp_core` runs every trip eagerly on a CUDA
+    tensor too, as on the CPU: no graph is captured or replayed. For tests
+    and measuring scripts (the launch table's pass that keeps each NN
+    launch's live inputs); the result is the same, bit for bit."""
+    global _eager
+    saved, _eager = _eager, True
+    try:
+        yield
+    finally:
+        _eager = saved
 
 
 def graph_cache() -> dict:
@@ -184,8 +197,8 @@ def _work_for(k, n, m, src_mask, dst_mask, dev) -> _Work:
 def _capture(work: _Work, phase: str, thr: float, patience: int,
              stall_rel: float, tile: int) -> _Graph:
     """Capture :func:`_trip` over ``work`` on a side stream into the
-    device's shared pool. The launch counters and the trace keep nothing
-    of the capture: its launches and counts are kept in the entry."""
+    device's shared pool. The ledger and the trace keep nothing of the
+    capture: its kernel calls and counts are kept in the entry."""
     dev = work.src.device
     if dev not in _streams:
         _streams[dev] = torch.cuda.Stream(dev)
@@ -195,35 +208,23 @@ def _capture(work: _Work, phase: str, thr: float, patience: int,
     live = next((e for e in _graphs.values() if e.work.src.device == dev),
                 None)
     pool = None if live is None else live.graph.pool()
-    saved = (_cuda_nn.launches, _cuda_nn.variant_launches,
-             _cuda_nn.shape_launches, _cuda_kabsch.launches)
-    _cuda_nn.launches = 0
-    _cuda_nn.variant_launches = collections.Counter()
-    _cuda_nn.shape_launches = collections.Counter()
-    _cuda_kabsch.launches = 0
     g = _Graph()
     g.graph = torch.cuda.CUDAGraph()
     g.work = work
-    try:
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with _trace.recording() as rec, torch.cuda.stream(stream):
-            g.graph.capture_begin(pool=pool)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with _trace.recording() as rec, torch.cuda.stream(stream):
+        g.graph.capture_begin(pool=pool)
+        try:
+            _trip(work, phase, thr, patience, stall_rel, tile)
+        except BaseException:
             try:
-                _trip(work, phase, thr, patience, stall_rel, tile)
-            except BaseException:
-                try:
-                    g.graph.capture_end()
-                except RuntimeError:
-                    pass            # the capture's own error: the trip's
-                raise
-            g.graph.capture_end()
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        g.nn, g.variants = _cuda_nn.launches, _cuda_nn.variant_launches
-        g.shapes, g.kabsch = _cuda_nn.shape_launches, _cuda_kabsch.launches
-        g.counted = rec
-    finally:
-        (_cuda_nn.launches, _cuda_nn.variant_launches,
-         _cuda_nn.shape_launches, _cuda_kabsch.launches) = saved
+                g.graph.capture_end()
+            except RuntimeError:
+                pass            # the capture's own error: the trip's
+            raise
+        g.graph.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    g.counted = rec
     return g
 
 
@@ -244,10 +245,6 @@ def _replay(work: _Work, phase: str, thres: float, coarse_thr: float,
         _graphs.move_to_end(key)
     g.graph.replay()
     _trace.count("icp_graph_replays")
-    _cuda_nn.launches += g.nn
-    _cuda_nn.variant_launches.update(g.variants)
-    _cuda_nn.shape_launches.update(g.shapes)
-    _cuda_kabsch.launches += g.kabsch
     _trace.recount(g.counted)
 
 
@@ -277,7 +274,7 @@ def icp_core(src: torch.Tensor, src_mask: torch.Tensor, dst: torch.Tensor,
 
     eff = coarse_iters if (coarse_iters and coarse_on) else 0
     coarse_thr = thres * coarse_scale
-    graphs = dev.type == "cuda" and _cuda_nn.on_launch is None
+    graphs = dev.type == "cuda" and not _eager
     best_R = torch.eye(3, dtype=f32, device=dev).expand(b, 3, 3).clone()
     best_t = torch.zeros((b, 3), dtype=f32, device=dev)
     k = b                                   # rows of the segment

@@ -44,8 +44,6 @@ _PLAIN_ELEMS = 1 << 26          # cap on one plain distance tile (elements)
 _PLAIN_ELEMS_CPU = 1 << 20      # the same on the CPU: a tile stays in cache
 _VARIANT_FORM = {"mxu": "expanded", "vpu": "elementwise", "vpu2": "sentinel"}
 
-plain_calls = 0                 # calls of masked_nn_plain
-
 
 def pick_variant(m: int) -> str:
     """Kernel variant for dst size ``m``: "mxu" (expanded), "vpu"
@@ -107,13 +105,13 @@ def masked_nn_plain(src: torch.Tensor, dst: torch.Tensor,
     arithmetic as the kernel: returns (idx (B,N) int32 | pts (B,N,3),
     dist (B,N)). The result does not depend on the tile size. A src point
     that ``src_mask`` (B,N) marks False gets idx 0, dist 1e15 and the point
-    (0,0,0) in every form."""
-    global plain_calls
+    (0,0,0) in every form. Each call is ``masked_nn_plain`` with its
+    (B, N, M) in the trace's ledger of kernel calls."""
     if form not in _cuda.FORMS:
         raise ValueError(f"form must be one of {_cuda.FORMS}, got {form!r}")
-    plain_calls += 1
     b, n, _ = src.shape
     m = dst.shape[1]
+    _trace.launch("masked_nn_plain", (b, n, m))
     src = src.float()
     dst = dst.float()
     mask = dst_mask.bool()

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace as _trace
 from ..config import PipelineConfig
 from ..flow import flow_with_identity_override
 from ..match.matcher import match_frame_pair
@@ -153,13 +154,13 @@ def broadcast_batch(batch, device):
 
 def rank_stats() -> dict:
     """This rank's NN kernel launches (in all and by (kernel, B, N, M)) and
-    plain NN calls since its counters were last reset, and whether TF32 is
-    on for matmuls or convolutions (the package turns it off)."""
-    from ..ops import knn
-    from ..ops.cuda import nn_kernel
-    return dict(rank=dist.get_rank(), nn_launches=nn_kernel.launches,
-                shape_launches=dict(nn_kernel.shape_launches),
-                plain_calls=knn.plain_calls,
+    plain NN calls since the trace's ledger of kernel calls was last
+    cleared, and whether TF32 is on for matmuls or convolutions (the
+    package turns it off)."""
+    return dict(rank=dist.get_rank(), nn_launches=_trace.launch_total("nn_"),
+                shape_launches={(k, *shape): n for (k, shape), n in
+                                _trace.launch_shapes("nn_").items()},
+                plain_calls=_trace.launch_total("masked_nn_plain"),
                 tf32=(torch.backends.cuda.matmul.allow_tf32
                       or torch.backends.cudnn.allow_tf32))
 

@@ -13,9 +13,16 @@ and counts with :func:`count`. While a CUDA graph is captured,
 code counts, so that :func:`recount` can add it to the call that replays
 the graph, once a replay.
 
-Untraced, nothing here costs more than an attribute read: :func:`span`
-returns one shared no-op context, :func:`count` returns at once, and no
-``record_function``, CUDA event, tensor, device op or sync is added.
+The ledger of kernel calls: each call of a kernel's implementation, a
+hand-written launch or its plain version, is one :func:`launch` (kernel
+name, shape), counted for the process, traced or not, and in a traced call
+as ``launches.<kernel>``; under :func:`recording` in the recording only,
+which :func:`recount` adds as if the replay had launched it.
+
+Untraced, a kernel call costs one update of the ledger, and nothing else
+here costs more than an attribute read: :func:`span` returns one shared
+no-op context, :func:`count` returns at once, and no ``record_function``,
+CUDA event, tensor, device op or sync is added.
 
 Traced, a span takes its times from the host clock (``perf_counter_ns``):
 a span's time is the host's time in it, waits at syncs inside it included.
@@ -79,6 +86,7 @@ class _Local(threading.local):
 _local = _Local()
 _ring: collections.deque = collections.deque(maxlen=RING)
 _ids = itertools.count(1)
+_launches: collections.Counter = collections.Counter()   # (kernel, shape)
 
 
 @dataclasses.dataclass
@@ -101,7 +109,7 @@ class CallRecord:
     was recording when the call began; ``counters``: name -> total
     (``icp_iters``, ``ego_iters``, ``match_pairs``, ``offline_pairs``,
     ``score_points``, ``host_syncs``, ``nn_valid.<form>.<index|points>``,
-    ``kabsch_launches``, ``icp_graph_captures``, ``icp_graph_replays``);
+    ``launches.<kernel>``, ``icp_graph_captures``, ``icp_graph_replays``);
     ``syncs``: span name -> host
     syncs while it was the innermost open span."""
     id: int
@@ -262,13 +270,15 @@ def count(name: str, n=1):
 
 class Recorded:
     """What code under :func:`recording` counted: ``counters`` (name ->
-    total of the numbers) and ``pending`` (name -> the tensors, each
-    flattened, which a CUDA graph's replay overwrites). Meanwhile it
-    stands in for the thread's call, as its own ``record``: spans open and
-    close on it untimed."""
+    total of the numbers), ``pending`` (name -> the tensors, each
+    flattened, which a CUDA graph's replay overwrites) and ``launches``
+    ((kernel, shape) -> kernel calls). Meanwhile it stands in for the
+    thread's call, as its own ``record``: spans open and close on it
+    untimed."""
 
     def __init__(self):
         self.counters = collections.Counter()
+        self.launches = collections.Counter()
         self.pending = collections.defaultdict(list)
         self.syncs = collections.Counter()
         self.stack = []
@@ -296,10 +306,53 @@ def recording():
         _local.call = saved
 
 
+def launch(kernel: str, shape: tuple, n: int = 1):
+    """Counts ``n`` calls of ``kernel`` at ``shape`` in the ledger and, in
+    a traced call, as its counter ``launches.<kernel>``; under
+    :func:`recording`, in the recording only."""
+    call = _local.call
+    if type(call) is Recorded:
+        call.launches[kernel, shape] += n
+        return
+    _launches[kernel, shape] += n
+    if call is not None:
+        call.record.counters["launches." + kernel] += n
+
+
+def launch_counts(prefix: str = "") -> collections.Counter:
+    """Kernel name -> calls in the ledger, of the names that start with
+    ``prefix``."""
+    out = collections.Counter()
+    for (k, _), n in _launches.items():
+        if k.startswith(prefix):
+            out[k] += n
+    return out
+
+
+def launch_total(prefix: str = "") -> int:
+    """Kernel calls in the ledger whose kernel name starts with ``prefix``."""
+    return sum(launch_counts(prefix).values())
+
+
+def launch_shapes(prefix: str = "") -> collections.Counter:
+    """(kernel name, shape) -> calls in the ledger, of the names that start
+    with ``prefix``."""
+    return collections.Counter({key: n for key, n in _launches.items()
+                                if key[0].startswith(prefix)})
+
+
+def clear_launches():
+    """Empties the ledger of kernel calls."""
+    _launches.clear()
+
+
 def recount(rec: Recorded):
-    """Adds what a recorded capture counted to the traced call, as one
-    more run of it: the numbers, and a copy of each tensor, taken now
-    (after the replay that wrote it); untraced, returns at once."""
+    """Adds what a recorded capture counted, as one more run of it: its
+    kernel calls to the ledger (:func:`launch`) and, in a traced call, the
+    numbers, and a copy of each tensor, taken now (after the replay that
+    wrote it)."""
+    for (kernel, shape), n in rec.launches.items():
+        launch(kernel, shape, n)
     if _local.call is None:
         return
     for name, n in rec.counters.items():

@@ -12,8 +12,6 @@ with ``python3 -m pytest tests/test_torch_icp_graph.py --noconftest -o
 addopts="" -p no:cacheprovider -k gpu``.
 """
 
-import collections
-
 import numpy as np
 import pytest
 import torch
@@ -23,8 +21,6 @@ from icpflow_tpu_torch import trace
 from icpflow_tpu_torch.ops import geometry as geo
 from icpflow_tpu_torch.ops import icp as ticp
 from icpflow_tpu_torch.ops import knn as _knn
-from icpflow_tpu_torch.ops.cuda import kabsch as cuda_kabsch
-from icpflow_tpu_torch.ops.cuda import nn_kernel
 
 _trace = trace
 CPU = torch.device("cpu")
@@ -167,6 +163,24 @@ def test_segments_bit_equal_to_the_loop(b, coarse):
         assert len(set(seen)) >= 3, seen
 
 
+def test_eager_trips_gives_the_same_bits_and_ends_with_its_block():
+    """``eager_trips`` changes which path runs a trip on the card, never a
+    bit of the result (on the CPU both are eager; the card's case is
+    ``chip_smoke.py`` 5b). It ends with its block, a raise included."""
+    args = _scene(12, 96, 128, seed=23)
+    want = ticp.icp_core(*args, True, **ICP)
+    with ticp.eager_trips():
+        with ticp.eager_trips():
+            got = ticp.icp_core(*args, True, **ICP)
+        assert ticp._eager
+    assert torch.equal(got, want)
+    assert not ticp._eager
+    with pytest.raises(KeyError):
+        with ticp.eager_trips():
+            raise KeyError("inside")
+    assert not ticp._eager
+
+
 @pytest.mark.parametrize("corr_cap,max_iters", [(64, 100), (0, 9)])
 def test_strided_source_and_the_trip_cap_bit_equal_to_the_loop(corr_cap,
                                                                max_iters):
@@ -242,11 +256,10 @@ def _fake_capture(made):
     def capture(work, phase, thr, patience, stall_rel, tile):
         g = ticp._Graph()
         g.graph, g.work = _NoGraph(), work
-        g.nn, g.kabsch = 2, 1
-        g.variants = collections.Counter({"nn_x": 2})
-        g.shapes = collections.Counter({("nn_x", 1, 2, 3): 2})
         g.counted = trace.Recorded()
-        g.counted.counters["kabsch_launches"] = 1
+        g.counted.launches.update({("nn_x", (1, 2, 3)): 2,
+                                   ("kabsch_solve", (1,)): 1})
+        g.counted.counters["match_pairs"] = 1
         made.append((work.src.shape[0], phase))
         return g
     return capture
@@ -285,10 +298,7 @@ def test_cache_keeps_its_bound_and_drops_the_least_recently_used(
 def test_replays_add_the_captured_launches_and_counts(monkeypatch):
     made = []
     monkeypatch.setattr(ticp, "_capture", _fake_capture(made))
-    monkeypatch.setattr(nn_kernel, "launches", 0)
-    monkeypatch.setattr(nn_kernel, "variant_launches", collections.Counter())
-    monkeypatch.setattr(nn_kernel, "shape_launches", collections.Counter())
-    monkeypatch.setattr(cuda_kabsch, "launches", 0)
+    trace.clear_launches()
     w = _work()
     with trace.StageClock({}, CPU, "test"):
         for _ in range(3):
@@ -296,10 +306,13 @@ def test_replays_add_the_captured_launches_and_counts(monkeypatch):
     (rec,) = trace.calls()
     assert rec.counters["icp_graph_captures"] == 1
     assert rec.counters["icp_graph_replays"] == 3
-    assert rec.counters["kabsch_launches"] == 3
-    assert nn_kernel.launches == 6 and cuda_kabsch.launches == 3
-    assert nn_kernel.variant_launches == {"nn_x": 6}
-    assert nn_kernel.shape_launches == {("nn_x", 1, 2, 3): 6}
+    assert rec.counters["match_pairs"] == 3
+    assert rec.counters["launches.kabsch_solve"] == 3
+    assert rec.counters["launches.nn_x"] == 6
+    assert trace.launch_total("nn_") == 6
+    assert trace.launch_counts() == {"nn_x": 6, "kabsch_solve": 3}
+    assert trace.launch_shapes() == {("nn_x", (1, 2, 3)): 6,
+                                     ("kabsch_solve", (1,)): 3}
 
 
 def test_recording_sets_the_call_aside_and_recount_adds_copies():
@@ -318,6 +331,34 @@ def test_recording_sets_the_call_aside_and_recount_adds_copies():
     assert call.counters["a"] == 4
     assert call.counters["t"] == 11 + 12 + 21 + 22
     trace.recount(rec)                       # untraced: nothing
+
+
+def test_launches_under_recording_reach_the_ledger_only_by_recount():
+    """A kernel call under ``recording`` goes into the recording only;
+    ``recount`` adds it to the ledger, and in a traced call to its
+    ``launches.*`` counter too, as if the replay had launched it."""
+    trace.clear_launches()
+    with trace.StageClock({}, CPU, "test"):
+        trace.launch("nn_x", (1, 2, 3))
+        with trace.recording() as rec:
+            trace.launch("nn_x", (1, 2, 3))
+            trace.launch("kabsch_solve", (4,))
+        assert trace.launch_shapes() == {("nn_x", (1, 2, 3)): 1}
+        assert dict(rec.launches) == {("nn_x", (1, 2, 3)): 1,
+                                      ("kabsch_solve", (4,)): 1}
+        assert not rec.counters
+        trace.recount(rec)
+        trace.recount(rec)
+    (call,) = trace.calls()
+    assert call.counters == {"launches.nn_x": 3, "launches.kabsch_solve": 2}
+    trace.recount(rec)                       # untraced: the ledger only
+    assert trace.launch_shapes() == {("nn_x", (1, 2, 3)): 4,
+                                     ("kabsch_solve", (4,)): 3}
+    assert trace.launch_total("nn_") == 4
+    assert trace.launch_counts("kabsch") == {"kabsch_solve": 3}
+    assert len(trace.calls()) == 1
+    trace.clear_launches()
+    assert not trace.launch_shapes() and trace.launch_total() == 0
 
 
 def _counted(fn, *args, **kw):
@@ -417,33 +458,25 @@ def test_gpu_replay_bit_equal_to_the_eager_trip(variant, monkeypatch):
     assert ticp.graph_cache()
 
 
-def _launches():
-    return (nn_kernel.launches, dict(nn_kernel.variant_launches),
-            dict(nn_kernel.shape_launches), cuda_kabsch.launches)
-
-
-def _reset(monkeypatch):
-    monkeypatch.setattr(nn_kernel, "launches", 0)
-    monkeypatch.setattr(nn_kernel, "variant_launches", collections.Counter())
-    monkeypatch.setattr(nn_kernel, "shape_launches", collections.Counter())
-    monkeypatch.setattr(cuda_kabsch, "launches", 0)
-
-
-def test_gpu_traced_counts_and_launches_as_eager(monkeypatch):
+def test_gpu_traced_counts_and_launches_as_eager():
     """On the card: a traced call counts the same ``icp_iters``,
-    ``nn_valid.*`` and ``kabsch_launches`` as the old loop, and adds the
-    same NN and Kabsch launches to the wrappers' counters; every trip is a
-    replay; ``kabsch_launches`` equals the ``icpflow.kabsch`` spans plus
-    the replays."""
+    ``nn_valid.*`` and ``launches.*`` as the old loop, and adds the same
+    NN and Kabsch launches, by kernel and shape, to the ledger; every trip
+    is a replay; ``launches.kabsch_solve`` equals the ``icpflow.kabsch``
+    spans plus the replays."""
     dev = _cuda()
     args = _scene(40, 512, 512, seed=7, device=dev)
-    _reset(monkeypatch)
+    trace.clear_launches()
     _, old = _counted(_loop_icp_core, *args, True, **ICP)
-    eager = _launches()
-    _reset(monkeypatch)
+    eager = trace.launch_shapes()
+    trace.clear_launches()
     _, new = _counted(ticp.icp_core, *args, True, **ICP)
-    assert _launches() == eager
-    for key in ("icp_iters", "kabsch_launches"):
+    assert trace.launch_shapes() == eager
+    assert {k: v for k, v in new.counters.items()
+            if k.startswith("launches.")} \
+        == {k: v for k, v in old.counters.items()
+            if k.startswith("launches.")}
+    for key in ("icp_iters", "launches.kabsch_solve"):
         assert new.counters[key] == old.counters[key] > 0
     assert {k: v for k, v in new.counters.items()
             if k.startswith("nn_valid.")} \
@@ -453,7 +486,7 @@ def test_gpu_traced_counts_and_launches_as_eager(monkeypatch):
     assert 0 < new.counters["icp_graph_captures"] \
         <= new.counters["icp_graph_replays"]
     spans = new.spans.get("icpflow.kabsch")
-    assert new.counters["kabsch_launches"] == \
+    assert new.counters["launches.kabsch_solve"] == \
         (spans.count if spans else 0) + new.counters["icp_graph_replays"]
     assert new.counters.get("host_syncs", 0) \
         <= old.counters.get("host_syncs", 0)

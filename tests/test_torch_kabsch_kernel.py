@@ -23,7 +23,7 @@ import torch
 from icpflow_tpu_torch import trace
 from icpflow_tpu_torch.ops import geometry as geo
 from icpflow_tpu_torch.ops.cuda import kabsch as cuda_kabsch
-from icpflow_tpu_torch.ops.cuda import nn_kernel
+from icpflow_tpu_torch.ops.cuda import library
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (the card check's case generators)
@@ -178,13 +178,12 @@ def test_split_kabsch_bit_equal_to_frozen_copy(b):
 
 
 def test_cpu_tensor_takes_the_plain_solve():
-    geo.kabsch_plain_calls = 0
-    cuda_kabsch.launches = 0
+    trace.clear_launches()
     src, dst, w = _cases(8, 3)
     geo.kabsch(src, dst, w)
     geo.kabsch(src[:1], dst[:1], w[:1])
-    assert geo.kabsch_plain_calls == 2
-    assert cuda_kabsch.launches == 0
+    assert trace.launch_shapes("kabsch") == {
+        ("kabsch_solve_plain", (8,)): 1, ("kabsch_solve_plain", (1,)): 1}
 
 
 def test_traced_cpu_call_counts_no_kabsch_launches():
@@ -195,7 +194,8 @@ def test_traced_cpu_call_counts_no_kabsch_launches():
         geo.kabsch(src, dst, w)
     (rec,) = trace.calls()
     assert rec.spans["icpflow.kabsch"].count == 2
-    assert "kabsch_launches" not in rec.counters
+    assert "launches.kabsch_solve" not in rec.counters
+    assert rec.counters["launches.kabsch_solve_plain"] == 2
     trace.clear()
 
 
@@ -203,33 +203,48 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     """Checked before the library is loaded, so on any machine."""
     H = torch.zeros((4, 3, 3))
     total = torch.ones(4)
+    trace.clear_launches()
     with pytest.raises(ValueError, match="CUDA"):
         cuda_kabsch.kabsch_solve_cuda(H, total)
-    assert cuda_kabsch.launches == 0
+    assert trace.launch_total() == 0
 
 
 def _copy_sources(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
-    shutil.copytree(nn_kernel.CSRC, csrc)
-    monkeypatch.setattr(nn_kernel, "CSRC", csrc)
+    shutil.copytree(library.CSRC, csrc)
+    monkeypatch.setattr(library, "CSRC", csrc)
     return csrc
 
 
 @pytest.mark.parametrize("name", ["nn_kernel.cu", "kabsch.cu"])
 def test_library_path_follows_either_source(tmp_path, monkeypatch, name):
     csrc = _copy_sources(tmp_path, monkeypatch)
-    assert [p.name for p in nn_kernel.sources()] == ["kabsch.cu",
-                                                     "nn_kernel.cu"]
-    before = nn_kernel.library_path()
+    assert [p.name for p in library.sources()] == ["kabsch.cu",
+                                                   "nn_kernel.cu"]
+    before = library.library_path()
     with open(csrc / name, "a") as f:
         f.write("\n// edited\n")
-    after = nn_kernel.library_path()
+    after = library.library_path()
     assert after != before and after.parent == before.parent
+
+
+def test_library_name_keeps_its_recipe(tmp_path, monkeypatch):
+    """The name hashes the sources' names and bytes and the flags as it
+    always has, so an unchanged ``csrc/`` keeps the cached build of a
+    checkout (the hash below is the one the recipe gave when the library
+    moved out of ``nn_kernel.py``), in ``icpflow_tpu_torch/build/``."""
+    assert library.BUILD_DIR == pathlib.Path(
+        library.__file__).resolve().parents[2] / "build"
+    monkeypatch.setattr(library, "CSRC", tmp_path)
+    (tmp_path / "b.cu").write_bytes(b"// b\n")
+    (tmp_path / "a.cu").write_bytes(b"// a\n")
+    assert library.library_path() == \
+        library.BUILD_DIR / "libicpflow_cuda_c111b5321756fb8e.so"
 
 
 def test_build_compiles_every_source_in_one_nvcc_call(tmp_path, monkeypatch):
     _copy_sources(tmp_path, monkeypatch)
-    monkeypatch.setattr(nn_kernel, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(library, "BUILD_DIR", tmp_path / "build")
     log = tmp_path / "calls.txt"
     nvcc = tmp_path / "nvcc"
     nvcc.write_text("#!/bin/sh\n"
@@ -237,25 +252,25 @@ def test_build_compiles_every_source_in_one_nvcc_call(tmp_path, monkeypatch):
                     'while [ "$1" != "-o" ]; do shift; done\n'
                     ': > "$2"\n')
     nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
-    monkeypatch.setattr(nn_kernel, "find_nvcc", lambda: str(nvcc))
-    out = nn_kernel.build(force=True)
-    assert out == nn_kernel.library_path() and out.exists()
+    monkeypatch.setattr(library, "find_nvcc", lambda: str(nvcc))
+    out = library.build(force=True)
+    assert out == library.library_path() and out.exists()
     (call,) = log.read_text().splitlines()
-    assert call.split()[-2:] == [str(p) for p in nn_kernel.sources()]
-    assert os.listdir(nn_kernel.BUILD_DIR) == [out.name]
+    assert call.split()[-2:] == [str(p) for p in library.sources()]
+    assert os.listdir(library.BUILD_DIR) == [out.name]
 
 
 def test_gpu_kernel_bit_equal_to_the_plain_solve():
     """On the card: the card's solve (the kernel and the two einsums)
     against the plain solve over the CPU cases at B = 1, 7, 56, 300 and
     4096 and 10^5 random covariances, 0 differing bits; a whole ``kabsch``
-    call makes no host sync; a traced call counts one ``kabsch_launches``
-    an ``icpflow.kabsch`` span and no plain solve."""
+    call makes no host sync; a traced call counts one
+    ``launches.kabsch_solve`` an ``icpflow.kabsch`` span, and the ledger
+    one ``kabsch_solve`` at its batch and no plain solve."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     dev = torch.device("cuda")
     kinds = chip_smoke.KABSCH_KINDS
-    geo.kabsch_plain_calls = 0
     for b in (1, 7, 56, 300, 4096):
         runs = ([(k, 1, k) for k in range(len(kinds))] if b == 1
                 else [(s, b, s) for s in range(3)])
@@ -281,11 +296,13 @@ def test_gpu_kernel_bit_equal_to_the_plain_solve():
     torch.cuda.synchronize()
 
     trace.clear()
+    trace.clear_launches()
     with trace.StageClock({}, dev, "test"):
         for b in (1, 7, 56):
             geo.kabsch(src[:b], dst[:b], w[:b])
     (rec,) = trace.calls()
-    assert rec.counters["kabsch_launches"] == 3
+    assert rec.counters["launches.kabsch_solve"] == 3
     assert rec.spans["icpflow.kabsch"].count == 3
-    assert geo.kabsch_plain_calls == 0
+    assert trace.launch_shapes("kabsch") == {
+        ("kabsch_solve", (b,)): 1 for b in (1, 7, 56)}
     trace.clear()

@@ -29,6 +29,7 @@ from icpflow_tpu.ops import knn as jknn  # noqa: E402
 from icpflow_tpu.ops.pallas.nn_kernel import (  # noqa: E402
     masked_nn_pallas, masked_nn_points_pallas)
 
+from icpflow_tpu_torch import trace  # noqa: E402
 from icpflow_tpu_torch.ops import knn as tknn  # noqa: E402
 
 torch.set_num_threads(2)
@@ -95,10 +96,11 @@ def test_plain_matches_pallas_points_kernel_interpreted(variant):
 def test_dispatch_on_cpu_reaches_plain_version_with_reference_semantics():
     src, dst, mask = _cloud(3, m=384)
     s, d, mk = _t(src, dst, mask)
-    before = tknn.plain_calls
+    trace.clear_launches()
     ti, td = tknn.masked_nn(s, d, mk, tile=128)
     tp, tpd = tknn.masked_nn_points(s, d, mk, tile=128)
-    assert tknn.plain_calls == before + 2
+    assert trace.launch_shapes() == {
+        ("masked_nn_plain", (s.shape[0], s.shape[1], d.shape[1])): 2}
     ji, jd = jknn.masked_nn(jnp.asarray(src), jnp.asarray(dst),
                             jnp.asarray(mask), tile=128)
     jp, jpd = jknn.masked_nn_points(jnp.asarray(src), jnp.asarray(dst),

@@ -27,7 +27,7 @@ import torch  # noqa: E402
 from icpflow_tpu.models.streaming import (  # noqa: E402
     StreamingEngine as JStream)
 import icpflow_tpu_torch as T  # noqa: E402
-from icpflow_tpu_torch.ops import knn  # noqa: E402
+from icpflow_tpu_torch import trace  # noqa: E402
 from test_streaming import CFG as STREAM_CFG, make_world  # noqa: E402
 
 torch.set_num_threads(2)
@@ -72,7 +72,7 @@ def test_stream_matches_jax(jax_outputs, variant, monkeypatch):
     scans, gt = _stream()
     eng = T.StreamingEngine(T.config_from_dict(dataclasses.asdict(CFG)),
                             estimate_ego=True, device="cpu")
-    calls = knn.plain_calls
+    calls = trace.launch_total("masked_nn_plain")
     outs = []
     for s in scans:
         timings = {}
@@ -80,7 +80,9 @@ def test_stream_matches_jax(jax_outputs, variant, monkeypatch):
         want = {"ego", "ground"} | ({"cluster", "track", "flow"}
                                    if outs[-1] is not None else set())
         assert set(timings) == want
-    assert knn.plain_calls > calls            # CPU tensors: plain sweeps
+    # CPU tensors: plain sweeps, no kernel
+    assert trace.launch_total("masked_nn_plain") > calls
+    assert trace.launch_total("nn_") == 0
     assert outs[0] is None and jax_outputs[0] is None
     for k in (1, 2):
         o, j = outs[k], jax_outputs[k]

@@ -31,7 +31,7 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
-from icpflow_tpu_torch.ops.cuda import nn_kernel  # noqa: E402
+from icpflow_tpu_torch.ops.cuda import library, nn_kernel  # noqa: E402
 
 SHAPES = ((7, 1024, 4096), (1, 1024, 4096), (14, 256, 4096), (4, 512, 512))
 FORMS = ("elementwise", "sentinel")
@@ -51,27 +51,26 @@ CUTS["nocluster"] = CUTS["nomerge"] + [
 
 def build_cuts():
     """The library and its three cut-down builds, compiled side by side."""
-    source = nn_kernel.SOURCE.read_text()
-    nn_kernel.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    source = (library.CSRC / "nn_kernel.cu").read_text()
+    library.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, cuts in CUTS.items():
         text = source
         for old, new in cuts:
             assert text.count(old) == 1, f"{name}: the source has moved on"
             text = text.replace(old, new)
-        cu = nn_kernel.BUILD_DIR / f"tune_{name}.cu"
+        cu = library.BUILD_DIR / f"tune_{name}.cu"
         cu.write_text(text)
         procs[name] = subprocess.Popen(
-            [nn_kernel.find_nvcc(), *nn_kernel.NVCC_FLAGS[:-2], "-o",
+            [library.find_nvcc(), *library.NVCC_FLAGS[:-2], "-o",
              str(cu.with_suffix(".so")), str(cu)])
-    libs = {"whole": nn_kernel.load()}
+    libs = {"whole": library.load()}
     for name, proc in procs.items():
         assert proc.wait() == 0, f"nvcc failed on the {name} build"
-        lib = ctypes.CDLL(str(nn_kernel.BUILD_DIR / f"tune_{name}.so"))
-        lib.icpflow_masked_nn.argtypes = \
-            libs["whole"].icpflow_masked_nn.argtypes
+        libs[name] = ctypes.CDLL(str(library.BUILD_DIR / f"tune_{name}.so"))
+    for lib in libs.values():
+        lib.icpflow_masked_nn.argtypes = nn_kernel.ARGTYPES
         lib.icpflow_masked_nn.restype = ctypes.c_int
-        libs[name] = lib
     return libs
 
 
