@@ -7,7 +7,7 @@ Phases, one line each, any failure ends with a non-zero exit:
 1. environment: torch / CUDA / nvcc versions and the card's name and power
    limit; a GPU is required;
 2. build: compile the kernel library from ``icpflow_tpu_torch/csrc`` (the
-   NN sweep and Kabsch's solve);
+   NN sweep, Kabsch's solve and DBSCAN's neighbour sweep);
 3. kernel vs plain: all six kernel instantiations against the plain
    PyTorch version at the main paths' shapes (the stream's exact odometry
    sweep included) and, 20 times over, at edge cases (an empty row,
@@ -33,6 +33,18 @@ Phases, one line each, any failure ends with a non-zero exit:
    most (eager; device: replayed from a CUDA graph, and for the plain
    solve, which synchronizes and cannot be captured, the sum of its device
    kernels under ``torch.profiler``), beside the empty kernel;
+3c. DBSCAN: the ``dbscan_candidates`` kernel against the plain sweep
+   (``cluster._candidates_plain``), counts and edges, every row, 0
+   differing values: on the clouds that the benchmark's four cells cluster
+   (its generator and entries, one seed each; every ``dbscan`` call of a
+   pair, of three stream scans, of a multigap sample), each cell's first
+   cloud also under the fixed radius and as ``dbscan_dedup``'s weighted
+   representatives under both radii, and on ``dbscan_edge_cases``; the
+   dense cloud's labels on the card equal the CPU's; each cell's calls
+   launched the kernel once a ``dbscan`` call and the plain sweep never.
+   The kernel's device time (``torch.profiler``), the wrapper's (eager and
+   replayed from a CUDA graph) and the plain sweep's at each cell's shape,
+   beside the bound;
 4. frame-pair path: ``run_frame_pair`` at the bench configuration on the
    synthetic held-out scene (seed 7, gaps 1 and 4, ~74k points per frame),
    twice per pair; the flow is checked against the GT flow and against the
@@ -131,9 +143,10 @@ table as JSON, and ``{"ok": true, "device": {...}}``.
     ``kernel_plain_max_err`` 0 and ``0 < nn_util_vs_bound <= 1.05``.
 
 ``python3 chip_smoke.py --offline``, ``--hdbscan``, ``--sharded``,
-``--bench``, ``--icp-graph`` and ``--kabsch`` run only the offline, the
-hdbscan or the sharded path, the bench, the ICP graph phase or the Kabsch
-check (timed at B = 1 and 64) after the build, and print no result line.
+``--bench``, ``--icp-graph``, ``--dbscan`` and ``--kabsch`` run only the
+offline, the hdbscan or the sharded path, the bench, the ICP graph phase,
+the DBSCAN phase or the Kabsch check (timed at B = 1 and 64) after the
+build, and print no result line.
 """
 
 from __future__ import annotations
@@ -716,10 +729,13 @@ def phase_build():
     by_regs = {}
     for sym, stack, st, ld, regs in entries:
         t = re.search(r"masked_nn_kernelILi(\d)ELb([01])ELi(\d)E", sym)
+        db = re.search(r"dbscan_candidatesILb([01])ELb([01])E", sym)
         other = re.search(r"nn_finish_kernel|empty_kernel|kabsch_solve",
                           sym)
-        check(t or other, f"ptxas -v names an unknown kernel {sym}")
-        tag = other.group(0) if t is None else "<{},{},{}>".format(*t.groups())
+        check(t or db or other, f"ptxas -v names an unknown kernel {sym}")
+        tag = ("<{},{},{}>".format(*t.groups()) if t else
+               "dbscan_candidates<{},{}>".format(*db.groups()) if db else
+               other.group(0))
         check(int(st) == 0 and int(ld) == 0, f"{tag} spills registers")
         by_regs.setdefault((int(regs), int(stack), int(st), int(ld)),
                            []).append(tag)
@@ -1543,9 +1559,10 @@ def _kabsch_batches(sizes):
         kabsch.kabsch_solve_cuda = launch
 
 
-def _profiled_device_ms(fn, iters=5):
+def _profiled_device_ms(fn, iters=5, name=None):
     """(device ms a call, device kernels a call) of ``fn`` under
-    ``torch.profiler``: the sum of its device activities' durations."""
+    ``torch.profiler``: the sum of its device activities' durations (of
+    those whose name holds ``name``, where it is given)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -1558,7 +1575,8 @@ def _profiled_device_ms(fn, iters=5):
     cuda = torch.autograd.DeviceType.CUDA
     ns, kernels = 0, 0
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() == cuda and not e.is_user_annotation():
+        if e.device_type() == cuda and not e.is_user_annotation() and (
+                name is None or name in e.name()):
             ns += e.duration_ns()
             kernels += not e.name().startswith(("Memcpy", "Memset"))
     return ns * 1e-6 / iters, kernels / iters
@@ -1595,6 +1613,291 @@ def phase_kabsch_times(card, sizes):
               f"{p_kernels:.0f} kernels) | launch floor {floor:.4f} (device "
               f"{floor_dev:.4f}) | whole kabsch call {whole:.4f} ms | {card}",
               flush=True)
+
+
+# ------------------------------------------------------------------ DBSCAN
+# the benchmark's cells whose clouds the sweep is held to, each at one seed
+DBSCAN_CELLS = (("av2_pairs.dense", 3100000101),
+                ("av2_pairs.sparse", 3200000101),
+                ("av2_stream.sessions16", 3300000101),
+                ("nuscenes_cli.multigap", 3190000101))
+DBSCAN_STREAM_SCANS = 3       # scans of the stream's first session
+DBSCAN_DEDUP_VOXEL = 0.15     # dbscan_dedup's voxel, the weighted variants
+
+
+def dbscan_edge_cases():
+    """(tag, xyz (n, 3) float32, valid (n,) bool, mult (n,) int64 or None,
+    ``dbscan`` keywords) at the edges of the sweep: nothing valid (nv = 0),
+    everything valid (nv = n), n below 2 * cell_cap (rcap = n), runs
+    longer than rcap (tt > rcap: scale != 1), every point in one cell,
+    neighbours at the radius; fixed and adaptive radius, unweighted and
+    weighted."""
+    rng = np.random.default_rng(2201)
+
+    def blob(n, scale):
+        return (rng.normal(scale=scale, size=(n, 3))
+                + [3.0, -2.0, 0.5]).astype(np.float32)
+
+    fixed = dict(eps=0.25, min_points=10, num_clusters=16, cell_cap=64,
+                 max_iters=100)
+    adaptive = dict(fixed, eps=0.2, eps_scale_per_m=0.05, eps_max=0.5)
+    small = dict(fixed, cell_cap=4)
+    x = blob(4096, 0.3)
+    v = rng.random(4096) < 0.95
+    mult = rng.integers(1, 6, 4096)
+    one = rng.uniform(10.03, 10.22, (512, 3)).astype(np.float32)
+    # 24 points at about eps around each of 400 centres 2 m apart: d_sq
+    # lies within a few ulps of eps^2, so any other rounding flips hits
+    centres = np.stack(np.meshgrid(np.arange(20.0), np.arange(20.0),
+                                   [0.5]), -1).reshape(-1, 3) * 2.0 + 40.0
+    u = rng.normal(size=(400, 24, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    ring = np.concatenate([centres[:, None], centres[:, None] + 0.25 * u],
+                          1).reshape(-1, 3).astype(np.float32)
+    return [
+        ("nv = 0", blob(300, 0.5), np.zeros(300, bool), None, fixed),
+        ("nv = n", blob(2048, 0.4), np.ones(2048, bool), None, fixed),
+        ("nv = n adaptive", blob(2048, 0.4), np.ones(2048, bool), None,
+         adaptive),
+        ("rcap = n = 100", blob(100, 0.2), rng.random(100) < 0.9, None,
+         fixed),
+        ("tt > rcap", x, v, None, small),
+        ("tt > rcap weighted", x, v, mult, small),
+        ("tt > rcap adaptive weighted", x, v, mult, dict(adaptive,
+                                                          cell_cap=4)),
+        ("one cell", one, np.ones(512, bool), None, fixed),
+        ("one cell weighted", one, np.ones(512, bool), mult[:512], fixed),
+        ("on the radius", ring, np.ones(len(ring), bool), None, fixed),
+    ]
+
+
+@contextlib.contextmanager
+def _captured(module, name, keep):
+    """``module.name`` wrapped so that each call's positional arguments and
+    keywords go into ``keep``, tensors cloned."""
+    import torch
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        keep.append((tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args), dict(kw)))
+        return fn(*args, **kw)
+
+    setattr(module, name, wrapped)
+    try:
+        yield keep
+    finally:
+        setattr(module, name, fn)
+
+
+def _sweeps(call):
+    """The arguments of every ``cluster._candidates`` call that ``call()``
+    makes."""
+    from icpflow_tpu_torch.ops import cluster
+    keep = []
+    with _captured(cluster, "_candidates", keep):
+        call()
+    return [args for args, _ in keep]
+
+
+def _dbscan_compare(tag, args):
+    """The kernel against ``_candidates_plain`` on the same card tensors:
+    counts and edges, every row of n, 0 differing values, or a report and
+    a failure. Returns the values compared."""
+    import torch
+    from icpflow_tpu_torch.ops import cluster
+    from icpflow_tpu_torch.ops.cuda import dbscan as cuda_dbscan
+    xyz_s, eps_s, ids_s, mult_s, span, nv, n, rcap, eps, per_m = args
+    ck, ek = cuda_dbscan.dbscan_candidates_cuda(
+        xyz_s, eps_s, ids_s, mult_s, span, nv, rcap, eps, per_m > 0.0)
+    cp, ep = cluster._candidates_plain(*args)
+    torch.cuda.synchronize()
+    check(ck.shape == cp.shape and ek.shape == ep.shape,
+          f"[dbscan] {tag}: shapes {tuple(ck.shape)} {tuple(ek.shape)} vs "
+          f"{tuple(cp.shape)} {tuple(ep.shape)}")
+    diff = int((ck != cp).sum()) + int((ek != ep).sum())
+    if diff:
+        rows = torch.nonzero((ck != cp) | (ek != ep).any(1))[:, 0].tolist()
+        for r in rows[:5]:
+            print(f"[dbscan mismatch] {tag} row {r} (nv {nv}, rcap {rcap}): "
+                  f"count kernel {int(ck[r])} plain {int(cp[r])}\n  edges "
+                  f"kernel {ek[r].tolist()}\n  edges plain  {ep[r].tolist()}",
+                  file=sys.stderr, flush=True)
+    check(diff == 0, f"[dbscan] {tag}: {diff} of {ck.numel() + ek.numel()} "
+          "values differ from the plain sweep")
+    return ck.numel() + ek.numel()
+
+
+def _dbscan_work(args):
+    """(candidate tests, runs with tt > rcap) of one sweep: the sum over
+    rows below nv and their 9 runs of min(tt, rcap) clipped at nv."""
+    import torch
+    from icpflow_tpu_torch.ops import cluster
+    xyz_s, eps_s, ids_s, mult_s, span, nv, n, rcap, *_ = args
+    deltas = torch.stack([(dx * span[1] + dy) * span[2] - 1
+                          for dx, dy in cluster._NBR9])
+    lo = ids_s[:nv, None] + deltas[None, :]
+    st = torch.searchsorted(ids_s, lo)
+    tt = torch.searchsorted(ids_s, lo + 3) - st
+    stop = torch.clamp(st + torch.clamp(tt, max=rcap), max=nv)
+    return (int(torch.clamp(stop - st, min=0).sum()),
+            int((tt > rcap).sum()))
+
+
+def _dbscan_times(tag, args, card):
+    """The kernel (its own device time under ``torch.profiler``; the
+    wrapper, its packing copy and the kernel, eager and replayed from a
+    CUDA graph) beside the plain sweep on the card (eager; the sum of its
+    device kernels) and the kernel's bound: the larger of its compulsory
+    bytes at the card's HBM rate and its candidate tests at the card's
+    FP32 lane rate (9 lane-operations a test: 3 subtractions, 3 products,
+    2 sums, the compare; the adaptive radius 2 more, its min and square),
+    the rates the NN kernel's bound takes."""
+    from icpflow_tpu_torch.ops import cluster
+    from icpflow_tpu_torch.ops.cuda import nn_kernel
+    xyz_s, eps_s, ids_s, mult_s, span, nv, n, rcap, eps, per_m = args
+    sweep = functools.partial(cluster._candidates, *args)
+    plain = functools.partial(cluster._candidates_plain, *args)
+    s_ms = _time_ms(sweep, iters=50)
+    s_dev = _device_ms(sweep, iters=20)
+    k_prof, _ = _profiled_device_ms(sweep, iters=10,
+                                    name="dbscan_candidates")
+    p_ms = _time_ms(plain, iters=3)
+    p_prof, p_kernels = _profiled_device_ms(plain, iters=2)
+    tests, over = _dbscan_work(args)
+    nbytes = n * (16 + 8) + n * 80 + (0 if mult_s is None else n * 8)
+    ops = tests * (11 if per_m > 0.0 else 9)
+    bound = 1e3 * max(nbytes / nn_kernel.HBM_BYTES_PER_S,
+                      ops / nn_kernel.FP32_LANE_OPS_PER_S)
+    print(f"[dbscan times] {tag}: n {n} nv {nv} rcap {rcap} | kernel "
+          f"{k_prof:.4f} ms (device, profiled) | wrapper {s_ms:.4f} ms "
+          f"(device {s_dev:.4f}) | plain sweep {p_ms:.3f} ms (profiled device "
+          f"{p_prof:.3f}, {p_kernels:.0f} kernels) | bound {bound:.4f} ms "
+          f"({nbytes / 1e6:.1f} MB, {ops / 1e6:.1f} M lane-ops) | {tests} "
+          f"candidate tests "
+          f"({tests / max(nv, 1):.1f} a row), {over} runs with tt > rcap | "
+          f"{card}", flush=True)
+
+
+def _dbscan_traced(args, kw):
+    """(path, rounds, host syncs) of one traced ``dbscan`` call on the card;
+    its ``dbscan_rounds`` counter equals ``info["rounds"]``."""
+    import torch
+    from icpflow_tpu_torch import trace
+    from icpflow_tpu_torch.ops import cluster
+    trace.clear()
+    info = {}
+    with trace.StageClock({}, torch.device("cuda"), "dbscan"):
+        cluster.dbscan(*args, info=info, **kw)
+    (rec,) = trace.calls()
+    trace.clear()
+    check(rec.counters["dbscan_rounds"] == info["rounds"],
+          f"[dbscan] dbscan_rounds {rec.counters['dbscan_rounds']} != "
+          f"info rounds {info['rounds']}")
+    return info["path"], info["rounds"], rec.counters.get("host_syncs", 0)
+
+
+def _dbscan_cell(workload, seed):
+    """The cell's program (the benchmark's entry, on the card) over its
+    first items until it has clustered: the arguments of every ``dbscan``
+    call it made and the ledger's DBSCAN calls meanwhile."""
+    from benchmark.manifest import Manifest
+    from icpflow_tpu_torch import trace
+    from icpflow_tpu_torch.ops import cluster
+    man = Manifest()
+    cell = man.cell(workload)
+    conf = man.config(cell["config"])
+    mix = man.mix(cell["traffic"])
+    items = man.generator(mix).make(mix, seed)
+    entry = man.entry(conf["entry"])(conf, mix, "cuda")
+    calls = []
+    trace.clear_launches()
+    with _captured(cluster, "dbscan", calls):
+        if conf["entry"] == "stream":
+            for k, scan in enumerate(items[0][:DBSCAN_STREAM_SCANS]):
+                entry.call((0, k), scan, None)
+        else:
+            entry.call(0, items[0], None)
+    return calls, trace.launch_counts("dbscan_candidates")
+
+
+def _dbscan_variants(args, kw):
+    """The sweeps of one captured ``dbscan`` input under the program's
+    keywords, the fixed radius, and as ``dbscan_dedup``'s weighted
+    representatives under both radii: (tag, sweep arguments)."""
+    from icpflow_tpu_torch.ops import cluster
+    xyz, valid = args[:2]
+    fixed = dict(kw, eps_scale_per_m=0.0)
+    out = []
+    for tag, k in (("", kw), (" fixed", fixed)):
+        for a in _sweeps(lambda: cluster.dbscan(*args, **k)):
+            out.append((tag, a))
+        voxel = min(DBSCAN_DEDUP_VOXEL, 0.5 * k.get("eps", 0.25))
+        for a in _sweeps(lambda: cluster.dbscan_dedup(
+                xyz, valid, dedup_voxel=voxel, rep_cap=xyz.shape[0], **k)):
+            out.append((tag + " dedup", a))
+    return out
+
+
+def phase_dbscan(card):
+    """Phase 3c: ``dbscan_candidates`` against the plain sweep, every value
+    of every row: on the clouds the benchmark's four cells cluster (the
+    program's own calls, and each cell's first cloud again under the fixed
+    radius and as dedup representatives, weighted), and on the edge
+    cases; the labels of ``dbscan`` on the card equal the CPU's on the
+    dense cloud; each cell's calls launched the kernel once a ``dbscan``
+    call and never the plain sweep; the kernel timed at each cell's
+    shape."""
+    import torch
+    from icpflow_tpu_torch.ops import cluster
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    values = sweeps = 0
+    dense = None
+    for workload, seed in DBSCAN_CELLS:
+        calls, launches = _dbscan_cell(workload, seed)
+        check(calls and launches == {"dbscan_candidates": len(calls)},
+              f"[dbscan] {workload}: {dict(launches)} for {len(calls)} "
+              "dbscan calls")
+        tag = f"{workload} seed {seed}"
+        for i, (args, kw) in enumerate(calls):
+            cases = (_dbscan_variants(args, kw) if i == 0 else
+                     [("", a) for a in _sweeps(
+                         lambda: cluster.dbscan(*args, **kw))])
+            for var, a in cases:
+                values += _dbscan_compare(f"{tag} call {i}{var}", a)
+                sweeps += 1
+            if i == 0:
+                _dbscan_times(tag, cases[0][1], card)
+        traced = [_dbscan_traced(a, k) for a, k in calls]
+        print(f"[dbscan] {tag}: {len(calls)} dbscan calls, "
+              f"{dict(launches)} launches, no plain sweep; n "
+              f"{calls[0][0][0].shape[0]}, nv "
+              f"{[int(a[1].sum()) for a, _ in calls]}; traced again: path, "
+              f"dbscan_rounds, host syncs {traced}", flush=True)
+        if dense is None:
+            dense = calls[0]
+    for tag, xyz, valid, mult, kw in dbscan_edge_cases():
+        args = (torch.as_tensor(xyz, device=dev),
+                torch.as_tensor(valid, device=dev),
+                None if mult is None else torch.as_tensor(mult, device=dev))
+        for a in _sweeps(lambda: cluster.dbscan(*args, **kw)):
+            values += _dbscan_compare(f"edge {tag}", a)
+            sweeps += 1
+    args, kw = dense
+    info_k, info_c = {}, {}
+    card_lab = cluster.dbscan(*args, info=info_k, **kw).cpu()
+    cpu_lab = cluster.dbscan(*(a.cpu() for a in args), info=info_c, **kw)
+    check(torch.equal(card_lab, cpu_lab),
+          f"[dbscan] {DBSCAN_CELLS[0][0]}: the card's labels differ from the "
+          f"CPU's on {int((card_lab != cpu_lab).sum())} points")
+    print(f"[dbscan] kernel == plain sweep: {values} values of {sweeps} "
+          f"sweeps equal ({len(DBSCAN_CELLS)} cells, fixed, adaptive, "
+          f"weighted, {len(dbscan_edge_cases())} edge cases); dense labels "
+          f"card == CPU ({int(card_lab.max()) + 1} clusters, path "
+          f"{info_k['path']} {info_k['rounds']} rounds, CPU {info_c['path']} "
+          f"{info_c['rounds']}); {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
 def _reset_counts():
@@ -2917,10 +3220,14 @@ def main():
     if "--icp-graph" in sys.argv[1:]:
         phase_icp_graph(card)
         return 0
+    if "--dbscan" in sys.argv[1:]:
+        phase_dbscan(card)
+        return 0
     phase_kabsch()
     if "--kabsch" in sys.argv[1:]:
         phase_kabsch_times(card, (1, 64))
         return 0
+    phase_dbscan(card)
     rows = phase_kernels()
     batches = collections.Counter()
     with _kabsch_batches(batches):

@@ -21,7 +21,8 @@ DBSCAN, step by step:
 3. Neighbour count: per run, the multiplicity-weighted number of candidates
    within the mutual radius min(eps_i, eps_j), scaled by tt / min(tt, rcap);
    summed over runs and rounded half to even. Core iff count >= min_points.
-   Each run's first within-radius candidate is an edge.
+   Each run's first within-radius candidate is an edge. On the card steps
+   2-3 are one launch of a hand-written kernel (``csrc/dbscan.cu``).
 4. Connected components of core points by min-label propagation over one of
    three graphs, chosen by the reference's condition: cell-contracted edges
    (cliques of cells of side eps/sqrt(3)), the compacted point edges, or the
@@ -37,6 +38,8 @@ import math
 
 import torch
 
+from .. import trace as _trace
+from .cuda import dbscan as _cuda_dbscan
 from .geometry import scale_as_xla
 
 _NBR9 = [(dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
@@ -75,8 +78,26 @@ def _pad1(x: torch.Tensor, value: int) -> torch.Tensor:
 
 def _candidates(xyz_s, eps_s, ids_s, mult_s, span, nv, n, rcap, eps,
                 eps_scale_per_m):
-    """Step 2-3 for the first ``nv`` sorted positions. Returns counts (nv,)
-    int64 and edges (nv, 9) (sorted positions, ``n`` where none)."""
+    """Steps 2-3 for the sorted positions: counts (n,) int64 and edges
+    (n, 9) int64 (sorted positions, ``n`` where none; rows from ``nv`` on
+    0 and ``n``). On a CUDA tensor one launch of the hand-written kernel
+    (``ops/cuda/dbscan.py``, ``dbscan_candidates`` in the trace's ledger
+    of kernel calls), on a CPU tensor :func:`_candidates_plain`; the two
+    agree bit for bit on the card."""
+    if xyz_s.is_cuda:
+        return _cuda_dbscan.dbscan_candidates_cuda(
+            xyz_s, eps_s, ids_s, mult_s, span, nv, rcap, eps,
+            eps_scale_per_m > 0.0)
+    return _candidates_plain(xyz_s, eps_s, ids_s, mult_s, span, nv, n, rcap,
+                             eps, eps_scale_per_m)
+
+
+def _candidates_plain(xyz_s, eps_s, ids_s, mult_s, span, nv, n, rcap, eps,
+                      eps_scale_per_m):
+    """Plain PyTorch version of :func:`_candidates` (``csrc/dbscan.cu``):
+    the first ``nv`` rows in chunks of ``_CAND_ELEMS`` candidates
+    (``dbscan_candidates_plain`` in the ledger)."""
+    _trace.launch("dbscan_candidates_plain", (nv, rcap))
     dev = xyz_s.device
     deltas = torch.stack([(dx * span[1] + dy) * span[2] - 1
                           for dx, dy in _NBR9])                  # (9,)
@@ -120,9 +141,8 @@ def _candidates(xyz_s, eps_s, ids_s, mult_s, span, nv, n, rcap, eps,
         first = torch.where(within, pos, torch.full_like(pos, _NONE)).amin(2)
         edges.append(torch.where(first < _NONE, first,
                                  torch.full_like(first, n)))
-    if not counts:
-        return (torch.zeros((0,), dtype=torch.int64, device=dev),
-                torch.zeros((0, 9), dtype=torch.int64, device=dev))
+    counts.append(torch.zeros((n - nv,), dtype=torch.int64, device=dev))
+    edges.append(torch.full((n - nv, 9), n, dtype=torch.int64, device=dev))
     return torch.cat(counts), torch.cat(edges)
 
 
@@ -152,7 +172,8 @@ def dbscan(xyz: torch.Tensor, valid: torch.Tensor,
     ``mult``: optional (N,) point multiplicities (voxel representatives):
     counts and sizes weight each point by it. ``info``, when given, receives
     the propagation ``path`` ("contracted", "compact" or "slab") and its
-    number of ``rounds``.
+    number of ``rounds``, which a traced call also counts
+    (``dbscan_rounds``).
     """
     n = xyz.shape[0]
     dev = xyz.device
@@ -182,12 +203,8 @@ def dbscan(xyz: torch.Tensor, valid: torch.Tensor,
         mult_s = torch.where(valid_s, mult.to(torch.int64)[order], 0)
 
     # --- 2-3. candidates, counts, first-hit edges -------------------------
-    cnt_v, edg_v = _candidates(xyz_s, eps_s, ids_s, mult_s, span, nv, n,
-                               rcap, eps, eps_scale_per_m)
-    counts = torch.zeros((n,), dtype=torch.int64, device=dev)
-    counts[:nv] = cnt_v
-    edges = torch.full((n, 9), n, dtype=torch.int64, device=dev)
-    edges[:nv] = edg_v
+    counts, edges = _candidates(xyz_s, eps_s, ids_s, mult_s, span, nv, n,
+                                rcap, eps, eps_scale_per_m)
     core = (counts >= min_points) & valid_s
 
     # --- 4. min-label propagation over core points ------------------------
@@ -292,6 +309,7 @@ def dbscan(xyz: torch.Tensor, valid: torch.Tensor,
         lab_pad = _pad1(label, n)
         border_lab = torch.where(core_pad[edges], lab_pad[edges], n).amin(1)
 
+    _trace.count("dbscan_rounds", rounds)
     if info is not None:
         info.update(path=path, rounds=rounds)
 
