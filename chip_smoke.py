@@ -2629,14 +2629,14 @@ def phase_hdbscan(card):
     launches by shape."""
     import torch
     from icpflow_tpu_torch import SceneFlowEngine, cli, run_frame_pair
-    from icpflow_tpu_torch.data.native_loader import get_lib
+    from icpflow_tpu_torch.ops.hdbscan_tree import get_lib
     from icpflow_tpu_torch.data.pca import DatasetPCA
     from icpflow_tpu_torch.ops import hdbscan
     ref = JAX_HDBSCAN_REFERENCE
     lib = get_lib()
-    check(lib is not None and hasattr(lib, "ifh_hdbscan_labels_weighted"),
-          "hdbscan: the native library or ifh_hdbscan_labels_weighted is "
-          "missing (no silent DBSCAN fallback here)")
+    check(lib is not None,
+          "hdbscan: the tree library (csrc/hdbscan_tree.cc) could not be "
+          "built (no silent DBSCAN fallback here)")
     engine = SceneFlowEngine(hdbscan_config())
     pairs = scene_pairs(engine.cfg)
     _check_graph(engine, pairs[0])

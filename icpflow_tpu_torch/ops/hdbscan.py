@@ -9,18 +9,26 @@ Port of ``icpflow_tpu/ops/hdbscan.py``, the reference's primary clusterer
   ``hdbscan_dedup_voxel``) with integer multiplicities, so that core
   distances and condensed-tree masses still count points, and builds the
   exact kNN graph over the representatives;
-* host, native C++ (``native/npz_reader.cc``: ``ifh_hdbscan_labels`` and
-  ``ifh_hdbscan_labels_weighted``, through ``data/native_loader.get_lib``):
-  Kruskal MST, condensed tree, excess-of-mass selection, labels;
+* host, C++ (``csrc/hdbscan_tree.cc``, built and loaded by
+  ``ops/hdbscan_tree.py``): Kruskal MST over the edges in the order
+  (weight, source row, destination), so that the tree is a function of the
+  edge set; condensed tree, excess-of-mass selection, labels. The JAX
+  package's tree (``native/npz_reader.cc``) sorts by weight alone, so the
+  two agree to the label where the order of tied edges does not matter;
 * host, numpy (``_finish_labels``): border reclaim and the size-ranked
   dense relabel, verbatim from the reference so that its ties fall the same
   way.
 
 A scene with more occupied voxels than ``hdbscan_rep_cap`` takes the full
 exact graph instead (counted in ``DEDUP_OVERFLOWS``, never truncated);
-``hdbscan_exact=False`` takes the voxel-hash graph. Without the native
-library the reference falls back to range-adaptive DBSCAN, and so does
-this port (``info["path"] == "dbscan_fallback"``).
+``hdbscan_exact=False`` takes the voxel-hash graph. Without its native
+library the JAX package falls back to range-adaptive DBSCAN, and so does
+this port where the tree cannot be built (``info["path"] ==
+"dbscan_fallback"``).
+
+A traced call (``icpflow_tpu_torch.trace``) counts ``hdbscan_rows``, the
+rows of the exact graph (representatives on ``dedup``, valid points on
+``full``), from the graph's host count.
 
 Numerics: the exact graph's expanded-form d2 rounds differently on each
 device and library (see ``exact_knn_mutual_reachability``), and near-equal
@@ -38,9 +46,10 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
-from ..data.native_loader import get_lib
+from .. import trace as _trace
 from ..device import StageClock
 from . import cluster as _cluster
+from .hdbscan_tree import get_lib
 
 # how often a scene overflowed hdbscan_rep_cap and took the full exact graph
 DEDUP_OVERFLOWS = 0
@@ -50,9 +59,8 @@ def _native_labels(edge_dst: np.ndarray, edge_w: np.ndarray,
                    min_cluster_size: int,
                    node_w: Optional[np.ndarray] = None
                    ) -> Optional[np.ndarray]:
-    """Condensed-tree labels from the native library (weighted by
-    ``node_w`` when given); None when the library or the symbol is
-    missing."""
+    """Condensed-tree labels from the tree library (weighted by
+    ``node_w`` when given); None when the library is missing."""
     lib = get_lib()
     if lib is None:
         return None
@@ -63,25 +71,15 @@ def _native_labels(edge_dst: np.ndarray, edge_w: np.ndarray,
     i32p = ctypes.POINTER(ctypes.c_int32)
     f32p = ctypes.POINTER(ctypes.c_float)
     if node_w is not None:
-        if not hasattr(lib, "ifh_hdbscan_labels_weighted"):
-            return None
-        fn = lib.ifh_hdbscan_labels_weighted
-        fn.restype = ctypes.c_int64
-        fn.argtypes = [i32p, f32p, i32p, ctypes.c_int64, ctypes.c_int32,
-                       ctypes.c_int32, i32p]
         nw = np.ascontiguousarray(node_w, np.int32)
-        fn(ed.ctypes.data_as(i32p), ew.ctypes.data_as(f32p),
-           nw.ctypes.data_as(i32p), n, e, min_cluster_size,
-           out.ctypes.data_as(i32p))
-        return out
-    if not hasattr(lib, "ifh_hdbscan_labels"):
-        return None
-    fn = lib.ifh_hdbscan_labels
-    fn.restype = ctypes.c_int64
-    fn.argtypes = [i32p, f32p, ctypes.c_int64, ctypes.c_int32,
-                   ctypes.c_int32, i32p]
-    fn(ed.ctypes.data_as(i32p), ew.ctypes.data_as(f32p), n, e,
-       min_cluster_size, out.ctypes.data_as(i32p))
+        lib.icpflow_hdbscan_labels_weighted(
+            ed.ctypes.data_as(i32p), ew.ctypes.data_as(f32p),
+            nw.ctypes.data_as(i32p), n, e, min_cluster_size,
+            out.ctypes.data_as(i32p))
+    else:
+        lib.icpflow_hdbscan_labels(
+            ed.ctypes.data_as(i32p), ew.ctypes.data_as(f32p), n, e,
+            min_cluster_size, out.ctypes.data_as(i32p))
     return out
 
 
@@ -217,6 +215,7 @@ def hdbscan(xyz: torch.Tensor, valid: torch.Tensor, cfg: PipelineConfig,
             _, edge_dst, edge_w = _cluster.exact_knn_mutual_reachability(
                 rep_xyz, rep_valid, rep_mult, k=k_core,
                 knn_recall=cfg.hdbscan_knn_recall, info=graph_info)
+            _trace.count("hdbscan_rows", graph_info["rows"])
             n_rep = int(edge_dst.shape[0])
             compress = cfg.hdbscan_fetch_f16 and n_rep <= 65534
             if compress:
@@ -263,6 +262,7 @@ def hdbscan(xyz: torch.Tensor, valid: torch.Tensor, cfg: PipelineConfig,
         _, edge_dst, edge_w = _cluster.exact_knn_mutual_reachability(
             xyz, valid, k=k_core, knn_recall=cfg.hdbscan_knn_recall,
             info=graph_info)
+        _trace.count("hdbscan_rows", graph_info["rows"])
     else:
         path = "voxel_hash"
         _, edge_dst, edge_w = _cluster.mutual_reachability_edges(

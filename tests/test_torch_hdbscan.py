@@ -13,8 +13,13 @@ CPU the port runs plain PyTorch; the JAX package runs XLA:CPU. Tolerances:
   that is far below the gaps between neighbours;
 * voxel-hash graph: core and weights within 1e-5 m, indices identical
   (direct differences, no expanded form);
-* labels: identical (the spanning tree sees the same edges in the same
-  order);
+* labels: identical, with the JAX package's hdbscan handed the port's
+  tree (``csrc/hdbscan_tree.cc``, fixture ``jax_on_the_port_tree``). The
+  JAX package's own tree (``native/npz_reader.cc``) sorts the edges by
+  weight alone, so tied weights enter its spanning tree in an order
+  ``std::sort`` leaves unspecified; the port's sorts by (weight, source
+  row, destination). Handed the same tree, the two see the same edges in
+  the same order;
 * ``hdbscan_fetch_f16``: the f16 weights bit-equal to numpy's rounding.
 
 ``use_hdbscan`` through the entry points is held against the JAX package in
@@ -26,6 +31,7 @@ matcher is compiled once for both), ``test_torch_data.py``
 
 import dataclasses
 import math
+import types
 
 import numpy as np
 import pytest
@@ -38,12 +44,14 @@ import torch  # noqa: E402
 
 import icpflow_tpu as J  # noqa: E402
 from icpflow_tpu.ops import cluster as jcl  # noqa: E402
+from icpflow_tpu.data import native_loader as jnl  # noqa: E402
 from icpflow_tpu.ops import hdbscan as jhd  # noqa: E402
 
 import icpflow_tpu_torch as T  # noqa: E402
 from icpflow_tpu_torch.data.native_loader import get_lib  # noqa: E402
 from icpflow_tpu_torch.ops import cluster as tcl  # noqa: E402
 from icpflow_tpu_torch.ops import hdbscan as thd  # noqa: E402
+from icpflow_tpu_torch.ops import hdbscan_tree  # noqa: E402
 
 from test_hdbscan import blob  # noqa: E402
 
@@ -57,6 +65,18 @@ EPE_BAND = 0.005
 # slot of it on the CPU
 JCFG = J.DEMO.replace(min_cluster_size=10, num_clusters=50,
                       hdbscan_rep_cap=2048)
+
+
+@pytest.fixture
+def jax_on_the_port_tree(monkeypatch):
+    """The JAX package's hdbscan with the port's tree under the names of
+    its native library's entries (the same arguments)."""
+    lib = hdbscan_tree.get_lib()
+    assert lib is not None
+    shim = types.SimpleNamespace(
+        ifh_hdbscan_labels=lib.icpflow_hdbscan_labels,
+        ifh_hdbscan_labels_weighted=lib.icpflow_hdbscan_labels_weighted)
+    monkeypatch.setattr(jnl, "get_lib", lambda *a, **k: shim)
 
 
 def _tcfg(jcfg):
@@ -272,7 +292,7 @@ def _voxel_hash():
     (_dedup_vs_full(False), "full"), (_voxel_hash, "voxel_hash"),
 ], ids=["varying_density", "sparse_far", "translation", "dedup", "full",
         "voxel_hash"])
-def test_hdbscan_labels_match_jax(scene, path):
+def test_hdbscan_labels_match_jax(scene, path, jax_on_the_port_tree):
     pts, over = scene()
     valid = np.ones(len(pts), bool)
     valid[-7:] = False
@@ -287,7 +307,7 @@ def test_hdbscan_labels_match_jax(scene, path):
     assert (tlab[~valid] == -1).all() and tlab.max() >= 1
 
 
-def test_overflow_takes_the_full_graph_and_counts():
+def test_overflow_takes_the_full_graph_and_counts(jax_on_the_port_tree):
     rng = np.random.default_rng(10)
     pts = np.concatenate([rng.uniform(-6, 6, size=(300, 3)),
                           blob(rng, [0, 0, 0], 300, 0.1)]).astype(np.float32)
@@ -302,7 +322,8 @@ def test_overflow_takes_the_full_graph_and_counts():
     np.testing.assert_array_equal(tlab, jhd.hdbscan(*_j(pts, valid), jcfg))
 
 
-def test_fetch_f16_rounds_like_numpy_and_labels_match_jax():
+def test_fetch_f16_rounds_like_numpy_and_labels_match_jax(
+        jax_on_the_port_tree):
     pts, _ = _varying_density()
     valid = np.ones(len(pts), bool)
     rep = tcl.voxel_dedup_compact(*_t(pts, valid), voxel=0.15, cap=2048)
