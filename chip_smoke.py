@@ -87,12 +87,20 @@ Phases, one line each, any failure ends with a non-zero exit:
    the gap-1 pair's voxel representatives against a float64 brute force
    (2,048 random rows, within the fp32 rounding of the expanded-form d2)
    and against the same function on the CPU (indices equal, distances
-   within 1e-6 m); the host copy of the graph timed as hdbscan makes it
-   and as one ``.cpu()`` a tensor; the frame pairs of gaps 1 and 4 through
+   within 1e-6 m), and the ``knn_graph`` kernel against the plain block
+   loop on the card, bit for bit; the hdbscan cell's four joint clouds
+   (~224k rows each, the full graph): the kernel against the plain loop
+   bit for bit, one call's launches, the kernel's device time beside its
+   bound and the plain loop's, and the first pair of the cell's mix through
+   ``run_frame_pair`` (the full path, one ``knn_graph`` launch and no plain
+   graph); the host copy of the graph timed as hdbscan makes it and as one
+   ``.cpu()`` a tensor; the frame pairs of gaps 1 and 4 through
    ``run_frame_pair``, twice each (the dedup path, the occupied voxels
-   equal to JAX's, no overflow, NN kernels and no plain NN call), gap 1's
-   joint labels against ``hdbscan`` over the same joint cloud on the CPU
-   (equal on 99% of the points at least); gap 1 on the voxel-hash graph;
+   equal to JAX's, no overflow, NN kernels and no plain NN call, one
+   ``knn_graph`` launch a pair and no plain graph),
+   gap 1's joint labels against ``hdbscan`` over the same joint cloud on
+   the CPU (equal on 99% of the points at least); gap 1 on the voxel-hash
+   graph;
    ``cli.run --if_hdbscan`` over seed 7 with GT poses; a scene past the
    representative bucket taking the full graph, counted. Checked against
    ``JAX_HDBSCAN_REFERENCE`` (EPE within 0.005 m, matched pairs and
@@ -730,11 +738,14 @@ def phase_build():
     for sym, stack, st, ld, regs in entries:
         t = re.search(r"masked_nn_kernelILi(\d)ELb([01])ELi(\d)E", sym)
         db = re.search(r"dbscan_candidatesILb([01])ELb([01])E", sym)
+        kg = re.search(r"knn_graph_kernelILi(\d+)E", sym)
         other = re.search(r"nn_finish_kernel|empty_kernel|kabsch_solve",
                           sym)
-        check(t or db or other, f"ptxas -v names an unknown kernel {sym}")
+        check(t or db or kg or other,
+              f"ptxas -v names an unknown kernel {sym}")
         tag = ("<{},{},{}>".format(*t.groups()) if t else
                "dbscan_candidates<{},{}>".format(*db.groups()) if db else
+               "knn_graph_kernel<{}>".format(*kg.groups()) if kg else
                other.group(0))
         check(int(st) == 0 and int(ld) == 0, f"{tag} spills registers")
         by_regs.setdefault((int(regs), int(stack), int(st), int(ld)),
@@ -2544,8 +2555,9 @@ def _check_graph(engine, pair):
     bound, by = _graph_bound(valid_pairs, n * (12 + 1 + 8 + 4 + 8 * k))
     print(f"[hdbscan graph] gap {gap}: {n_unique} representatives of "
           f"{int(valid.sum())} points, k {k} | {ms:.2f} ms ({info['blocks']} "
-          f"blocks; top-k route: {info['tie_rows']} of {info['rows']} rows "
-          f"re-sorted whole for a k-th / (k+1)-th tie) | {valid_pairs:.4g} "
+          f"blocks of the plain loop; {info['tie_rows']} of "
+          f"{info['rows']} rows tie at the k-th / (k+1)-th d2) | "
+          f"{_graph_equal(rx, rv, k)[0]} | {valid_pairs:.4g} "
           f"valid pairs, bound {bound:.4f} ms ({by}), share "
           f"{bound / ms:.4f} | vs float64 on {len(rows)} rows: core max err "
           f"{worst:.3g} m ({share:.3f} of the fp32 rounding bound, at most "
@@ -2574,6 +2586,119 @@ def _check_graph(engine, pair):
           f"| pinned copies and one synchronize (_fetch) {fetch:.3f} ms, one "
           f".cpu() a tensor {each:.3f} ms | equal {same}", flush=True)
     check(same, "hdbscan fetch: _fetch differs from .cpu()")
+
+
+# the hdbscan cell, whose four joint clouds take the full graph, at a seed
+HDBSCAN_CELL = ("av2_pairs_hdbscan.dense", 3124000101)
+
+
+def _graph_equal(xyz, valid, k):
+    """The kernel (``cluster._knn_graph`` on the card) against the plain
+    block loop on the card, every bit of every value and index and the tie
+    count; fails the run where they differ. Returns (the line's words, the
+    plain loop's stats, its host ms)."""
+    import torch
+    from icpflow_tpu_torch.ops import cluster
+    _, q, qsq = cluster.graph_points(xyz, valid)
+    got_s, want_s = dict(blocks=0, tie_rows=0), dict(blocks=0, tie_rows=0)
+    vals, cols = cluster._knn_graph(q, qsq, k, cluster._GRAPH_BLOCK, got_s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w_vals, w_cols = cluster._knn_graph_plain(q, qsq, k, cluster._GRAPH_BLOCK,
+                                              want_s)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bad_v = int((vals.view(torch.int32) != w_vals.view(torch.int32)).sum())
+    bad_c = int((cols != w_cols).sum())
+    check(bad_v == 0 and bad_c == 0
+          and got_s["tie_rows"] == want_s["tie_rows"],
+          f"knn_graph: {bad_v} values and {bad_c} indices differ from the "
+          f"plain loop, tie rows {got_s['tie_rows']} vs "
+          f"{want_s['tie_rows']}")
+    return (f"kernel == plain loop on the card: {vals.numel()} values and "
+            f"indices equal, tie rows {got_s['tie_rows']} both", want_s,
+            plain_ms)
+
+
+def _check_full_graph(card):
+    """The hdbscan cell's full exact graph on the card: each of the four
+    joint clouds of its mix (``HDBSCAN_CELL``, padded as ``run_frame_pair``
+    pads them; every one past the representative bucket): the kernel
+    against the plain block loop, bit for bit; one call's launches; the
+    kernel's device time by ``torch.profiler`` beside the graph's bound
+    (``benchmark/layers/hdbscan_bound.py``), the whole call's and the
+    plain loop's. Then the mix's first pair through ``run_frame_pair`` on
+    the cell's configuration, the ledger cleared just before: the full
+    path, one ``knn_graph`` launch, no plain graph."""
+    import torch
+    from benchmark.layers import hdbscan_bound
+    from benchmark.manifest import Manifest
+    from icpflow_tpu_torch import (SceneFlowEngine, config_from_dict,
+                                   run_frame_pair, trace)
+    from icpflow_tpu_torch.ops import cluster
+    from icpflow_tpu_torch.ops.cuda import knn_graph
+    workload, seed = HDBSCAN_CELL
+    man = Manifest()
+    cell = man.cell(workload)
+    conf = man.config(cell["config"])
+    mix = man.mix(cell["traffic"])
+    engine = SceneFlowEngine(config_from_dict(conf["pipeline"]))
+    k = min(engine.cfg.min_cluster_size, 30)
+    items = man.generator(mix).make(mix, seed)
+    for i, (src, dst) in enumerate(items):
+        pts, valid, _ = _joint_cloud(engine, src, dst)
+        m = int(valid.sum())
+        trace.clear_launches()
+        info = {}
+        call = functools.partial(cluster.exact_knn_mutual_reachability, pts,
+                                 valid, k=k, info=info)
+        call()
+        launches = dict(trace.launch_shapes("knn_graph"))
+        check(launches == {("knn_graph", (m, k)): 1} and info["blocks"] == 0,
+              f"full graph scene {i}: launches {launches}, blocks "
+              f"{info['blocks']}")
+        trace.clear()
+        with trace.StageClock({}, pts.device, "graph"):
+            call()
+        (rec,) = trace.calls()
+        trace.clear()
+        traced = {key: n for key, n in rec.counters.items()
+                  if key.startswith("launches.knn_graph")}
+        check(traced == {"launches.knn_graph": 1},
+              f"full graph scene {i}: a traced call counted {traced}")
+        same, plain_s, plain_ms = _graph_equal(pts, valid, k)
+        _, q, qsq = cluster.graph_points(pts, valid)
+        pts4 = torch.cat([q, qsq[:, None]], 1)
+        kern, kernels = _profiled_device_ms(
+            lambda: knn_graph.knn_graph_cuda(pts4, k), iters=5,
+            name="knn_graph")
+        whole = _time_ms(call, iters=5)
+        bound = hdbscan_bound.bound_ms(m, k)
+        print(f"[hdbscan full graph] {workload} seed {seed} scene {i}: {m} "
+              f"rows, k {k} | kernel {kern:.3f} ms (device, profiled; "
+              f"{kernels:.0f} kernels) | whole call {whole:.3f} ms (eager) "
+              f"| bound {bound:.3f} ms (operations), share "
+              f"{bound / kern:.4f}, at the kernel's 8 lane-ops a pair "
+              f"{8 / hdbscan_bound.GRAPH_OPS_PER_PAIR * bound / kern:.4f} | "
+              f"plain loop {plain_ms:.1f} ms "
+              f"({plain_s['blocks']} blocks, {plain_s['tie_rows']} tie "
+              f"rows) | {same} | launches a call {launches}, traced "
+              f"{traced}, blocks {info['blocks']}, tie_rows "
+              f"{info['tie_rows']} | {card}", flush=True)
+
+    src, dst = items[0]
+    trace.clear_launches()
+    run_frame_pair(engine, src, dst,
+                   translation_frame=engine.cfg.translation_frame(
+                       int(mix["gap"])))
+    path = engine.cluster_info["path"]
+    shapes = dict(trace.launch_shapes("knn_graph"))
+    check(path == "full" and list(shapes.values()) == [1]
+          and next(iter(shapes))[0] == "knn_graph",
+          f"{workload} pair: path {path}, graph launches {shapes}")
+    print(f"[hdbscan full graph] {workload} seed {seed} pair 0 through "
+          f"run_frame_pair: path {path}, graph launches {shapes} | {card}",
+          flush=True)
 
 
 def _check_labels(engine, pair, out):
@@ -2622,13 +2747,14 @@ def _stage_ms(info):
 
 def phase_hdbscan(card):
     """``use_hdbscan=True`` on the card: (a) the native library, (b) the
-    exact graph, (c) the frame pairs through ``run_frame_pair``, twice
+    exact graph (the representatives', then the hdbscan cell's full
+    graphs), (c) the frame pairs through ``run_frame_pair``, twice
     each, (d) gap 1 on the voxel-hash graph, (e) ``cli.run --if_hdbscan``
     over seed 7 with GT poses, (f) a scene past the representative bucket.
     Returns the launches per kernel of (c) and, for the launch table, its
     launches by shape."""
     import torch
-    from icpflow_tpu_torch import SceneFlowEngine, cli, run_frame_pair
+    from icpflow_tpu_torch import SceneFlowEngine, cli, run_frame_pair, trace
     from icpflow_tpu_torch.ops.hdbscan_tree import get_lib
     from icpflow_tpu_torch.data.pca import DatasetPCA
     from icpflow_tpu_torch.ops import hdbscan
@@ -2640,6 +2766,7 @@ def phase_hdbscan(card):
     engine = SceneFlowEngine(hdbscan_config())
     pairs = scene_pairs(engine.cfg)
     _check_graph(engine, pairs[0])
+    _check_full_graph(card)
 
     overflows = hdbscan.DEDUP_OVERFLOWS
     _reset_counts()
@@ -2654,6 +2781,12 @@ def phase_hdbscan(card):
     check(launches > 0 and plain == 0, f"hdbscan pairs: {launches} NN "
           f"launches, {plain} plain NN calls")
     _check_kabsch_counts("hdbscan pairs")
+    # one exact graph a pair (the representatives'), the kernel's
+    graph_shapes = dict(trace.launch_shapes("knn_graph"))
+    graph_counts = dict(trace.launch_counts("knn_graph"))
+    check(graph_counts == {"knn_graph": len(runs)},
+          f"hdbscan pairs: graph launches {graph_counts} over {len(runs)} "
+          "pairs")
     check(hdbscan.DEDUP_OVERFLOWS == overflows,
           "hdbscan pairs overflowed the representative bucket")
     for gap, src, dst, gt, dyn, tf in pairs:
@@ -2681,7 +2814,8 @@ def phase_hdbscan(card):
               f"hdbscan gap {gap}: {info['n_unique']} voxels, JAX "
               f"{ref[gap]['n_unique']}")
     print(f"[hdbscan] NN kernel launches {launches} {per_kernel}, plain NN "
-          f"calls {plain}", flush=True)
+          f"calls {plain} | graph launches by (kernel, (m, k)) "
+          f"{graph_shapes}", flush=True)
     _check_labels(engine, pairs[0], [r[1] for r in runs if r[0] == GAPS[0]][1])
 
     # (d) the voxel-hash graph

@@ -40,6 +40,7 @@ import torch
 
 from .. import trace as _trace
 from .cuda import dbscan as _cuda_dbscan
+from .cuda import knn_graph as _cuda_knn
 from .geometry import scale_as_xla
 
 _NBR9 = [(dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
@@ -450,6 +451,61 @@ def _smallest_k(d2: torch.Tensor, k: int, stats: dict):
     return vals[:, :k], cols[:, :k]
 
 
+def graph_points(xyz: torch.Tensor, valid: torch.Tensor):
+    """The rows of the exact graph: the valid points' indices ``vidx``,
+    the points q (m, 3) and their squared norms ``(x*x + y*y) + z*z``."""
+    vidx = torch.nonzero(valid)[:, 0]
+    q = xyz[vidx]
+    return vidx, q, (q[:, 0] * q[:, 0] + q[:, 1] * q[:, 1]) + q[:, 2] * q[:, 2]
+
+
+def _knn_graph(q: torch.Tensor, qsq: torch.Tensor, k: int, block: int,
+               stats: dict):
+    """Each of the m rows of ``q`` (m, 3), ``qsq`` its squared norms: its k
+    nearest other rows by the expanded d2 in ``lax.top_k`` order. Returns
+    vals (m, k) f32 and cols (m, k) int64, compacted columns, (1e9, m)
+    where none; adds the tie rows to ``stats``. On a CUDA tensor one launch
+    of the hand-written kernel (``ops/cuda/knn_graph.py``, ``knn_graph`` in
+    the trace's ledger of kernel calls), whose tie count is read on the
+    host; on a CPU tensor :func:`_knn_graph_plain`, which adds its blocks
+    too. The two agree bit for bit on the card."""
+    if q.is_cuda:
+        vals, cols, ties = _cuda_knn.knn_graph_cuda(
+            torch.cat([q, qsq[:, None]], 1), k)
+        stats["tie_rows"] += int(ties)
+        return vals, cols.to(torch.int64)
+    return _knn_graph_plain(q, qsq, k, block, stats)
+
+
+def _knn_graph_plain(q: torch.Tensor, qsq: torch.Tensor, k: int, block: int,
+                     stats: dict):
+    """Plain PyTorch version of :func:`_knn_graph` (``csrc/knn_graph.cu``):
+    blocks of rows of at most ``block`` d2 entries, each d2 block by
+    :func:`_sq_dist_expanded`, self at ``_BIG``, then :func:`_smallest_k`
+    (``knn_graph_plain`` in the ledger, once a call)."""
+    m = q.shape[0]
+    _trace.launch("knn_graph_plain", (m, k))
+    dev = q.device
+    vals_m = torch.full((m, k), _BIG, dtype=torch.float32, device=dev)
+    cols_m = torch.full((m, k), m, dtype=torch.int64, device=dev)
+    step = max(1, block // m)
+    for r0 in range(0, m, step):
+        r1 = min(m, r0 + step)
+        d2 = _sq_dist_expanded(q[r0:r1], q, qsq[r0:r1], qsq)
+        rows = torch.arange(r1 - r0, device=dev)
+        d2[rows, rows + r0] = _BIG                        # self
+        vals, cols = _smallest_k(d2, k, stats)
+        del d2
+        kk = vals.shape[1]
+        none = vals >= _BIG
+        vals_m[r0:r1, :kk] = torch.where(none, torch.full_like(vals, _BIG),
+                                         vals)
+        cols_m[r0:r1, :kk] = torch.where(none, torch.full_like(cols, m),
+                                         cols)
+        stats["blocks"] += 1
+    return vals_m, cols_m
+
+
 def exact_knn_mutual_reachability(xyz: torch.Tensor, valid: torch.Tensor,
                                   mult: torch.Tensor | None = None, *,
                                   k: int = 20, knn_recall: float = 0.0,
@@ -471,13 +527,18 @@ def exact_knn_mutual_reachability(xyz: torch.Tensor, valid: torch.Tensor,
     Returns core (N,) f32 (1e9 for invalid points), edge_dst (N, k) int32
     (N = no edge) and edge_w (N, k) f32 (1e9 = no edge).
 
-    Only valid rows and columns are computed, in blocks of at most
+    Only valid rows and columns are computed (``_knn_graph``): on a CUDA
+    tensor by the hand-written kernel, on a CPU tensor in blocks of at most
     ``block`` d2 entries (a block of valid src rows against every valid
-    dst); the result does not depend on the block size. ``knn_recall`` is
-    accepted for the reference's signature and changes nothing: its
-    ``approx_min_k`` is exact on the CPU, and this function is exact.
-    ``info``, when given, receives ``rows``, ``blocks`` and ``tie_rows``
-    (the rows whose k-th and (k+1)-th d2 were equal and were sorted whole).
+    dst); the result does not depend on the block size or the device.
+    ``knn_recall`` is accepted for the reference's signature and changes
+    nothing: its ``approx_min_k`` is exact on the CPU, and this function is
+    exact. ``info``, when given, receives ``rows``, ``blocks`` (the plain
+    version's blocks; 0 on the card, whose launch the trace's ledger
+    counts) and ``tie_rows`` (the rows whose k-th and (k+1)-th d2 were
+    equal; the plain version sorts them whole). The function returns
+    behind its device work: it reads the blocks' or the kernel's tie count
+    on the host.
 
     Numerics: the expanded d2 carries ~ulp(|x|^2) of rounding noise,
     ~6e-5 m^2 at 30 m from the origin against a neighbour's 0.02-0.09 m^2.
@@ -493,29 +554,15 @@ def exact_knn_mutual_reachability(xyz: torch.Tensor, valid: torch.Tensor,
     dev = xyz.device
     xyz = xyz.to(torch.float32)
     valid = valid.to(torch.bool)
-    vidx = torch.nonzero(valid)[:, 0]
+    vidx, q, qsq = graph_points(xyz, valid)
     m = vidx.numel()
     d2_knn = torch.full((n, k), _BIG, dtype=torch.float32, device=dev)
     idx_knn = torch.full((n, k), n, dtype=torch.int64, device=dev)
     stats = dict(rows=m, blocks=0, tie_rows=0)
     if m:
-        q = xyz[vidx]
-        qsq = (q[:, 0] * q[:, 0] + q[:, 1] * q[:, 1]) + q[:, 2] * q[:, 2]
-        step = max(1, block // m)
-        for r0 in range(0, m, step):
-            r1 = min(m, r0 + step)
-            d2 = _sq_dist_expanded(q[r0:r1], q, qsq[r0:r1], qsq)
-            rows = torch.arange(r1 - r0, device=dev)
-            d2[rows, rows + r0] = _BIG                        # self
-            vals, cols = _smallest_k(d2, k, stats)
-            del d2
-            kk = vals.shape[1]
-            none = vals >= _BIG
-            d2_knn[vidx[r0:r1], :kk] = torch.where(
-                none, torch.full_like(vals, _BIG), vals)
-            idx_knn[vidx[r0:r1], :kk] = torch.where(
-                none, torch.full_like(cols, n), vidx[cols])
-            stats["blocks"] += 1
+        vals, cols = _knn_graph(q, qsq, k, block, stats)
+        d2_knn[vidx] = vals
+        idx_knn[vidx] = _pad1(vidx, n)[cols]
     if info is not None:
         info.update(stats)
     d_knn = torch.sqrt(torch.clamp(d2_knn, min=0.0))

@@ -1,8 +1,9 @@
 """Build and load the port's kernel library: every ``csrc/*.cu``.
 
 The library holds the NN sweep (``ops/cuda/nn_kernel.py``), Kabsch's solve
-(``ops/cuda/kabsch.py``), DBSCAN's neighbour sweep (``ops/cuda/dbscan.py``)
-and an empty kernel (:func:`launch_floor`). It is
+(``ops/cuda/kabsch.py``), DBSCAN's neighbour sweep (``ops/cuda/dbscan.py``),
+hdbscan's exact kNN graph (``ops/cuda/knn_graph.py``) and an empty kernel
+(:func:`launch_floor`). It is
 compiled with one ``nvcc`` call at first use, from the sources in this
 checkout, into ``icpflow_tpu_torch/build/`` (git-ignored), under a name
 keyed by a hash of the sources and the flags, and loaded with ``ctypes``.

@@ -216,10 +216,12 @@ def _copy_sources(tmp_path, monkeypatch):
     return csrc
 
 
-@pytest.mark.parametrize("name", ["nn_kernel.cu", "kabsch.cu", "dbscan.cu"])
+@pytest.mark.parametrize("name", ["nn_kernel.cu", "kabsch.cu", "dbscan.cu",
+                                  "knn_graph.cu"])
 def test_library_path_follows_either_source(tmp_path, monkeypatch, name):
     csrc = _copy_sources(tmp_path, monkeypatch)
     assert [p.name for p in library.sources()] == ["dbscan.cu", "kabsch.cu",
+                                                   "knn_graph.cu",
                                                    "nn_kernel.cu"]
     before = library.library_path()
     with open(csrc / name, "a") as f:
@@ -257,7 +259,7 @@ def test_build_compiles_every_source_in_one_nvcc_call(tmp_path, monkeypatch):
     assert out == library.library_path() and out.exists()
     (call,) = log.read_text().splitlines()
     srcs = [str(p) for p in library.sources()]
-    assert len(srcs) == 3 and call.split()[-len(srcs):] == srcs
+    assert len(srcs) == 4 and call.split()[-len(srcs):] == srcs
     assert os.listdir(library.BUILD_DIR) == [out.name]
 
 
