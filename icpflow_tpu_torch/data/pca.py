@@ -31,9 +31,14 @@ from .loading import PrefetchIterMixin
 
 
 def _pad(pts: np.ndarray, cap: int):
+    """The cloud in a ``cap`` bucket and its valid mask. A cloud past the
+    bucket raises: cutting it would cluster and match other points."""
+    n = len(pts)
+    if n > cap:
+        raise ValueError(f"cloud of {n} points exceeds bucket {cap}: raise "
+                         f"max_points_scene")
     out = np.zeros((cap, 3), np.float32)
-    n = min(len(pts), cap)
-    out[:n] = pts[:n, :3]
+    out[:n] = pts[:, :3]
     valid = np.zeros((cap,), bool)
     valid[:n] = True
     return out, valid

@@ -174,7 +174,8 @@ def dbscan(xyz: torch.Tensor, valid: torch.Tensor,
     counts and sizes weight each point by it. ``info``, when given, receives
     the propagation ``path`` ("contracted", "compact" or "slab") and its
     number of ``rounds``, which a traced call also counts
-    (``dbscan_rounds``).
+    (``dbscan_rounds``), as it counts the valid rows and the bucket
+    (``dbscan_points``, ``dbscan_slots``).
     """
     n = xyz.shape[0]
     dev = xyz.device
@@ -199,6 +200,8 @@ def dbscan(xyz: torch.Tensor, valid: torch.Tensor,
     eps_s = eps_pt[order]
     valid_s = valid[order]
     nv = int(valid.sum())
+    _trace.count("dbscan_points", nv)
+    _trace.count("dbscan_slots", n)
     mult_s = None
     if mult is not None:
         mult_s = torch.where(valid_s, mult.to(torch.int64)[order], 0)

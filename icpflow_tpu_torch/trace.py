@@ -109,7 +109,8 @@ class CallRecord:
     was recording when the call began; ``counters``: name -> total
     (``icp_iters``, ``ego_iters``, ``match_pairs``, ``offline_pairs``,
     ``score_points``, ``host_syncs``, ``nn_valid.<form>.<index|points>``,
-    ``launches.<kernel>``, ``icp_graph_captures``, ``icp_graph_replays``);
+    ``launches.<kernel>``, ``icp_graph_captures``, ``icp_graph_replays``,
+    ``dbscan_rounds``, ``dbscan_points``, ``dbscan_slots``);
     ``syncs``: span name -> host
     syncs while it was the innermost open span."""
     id: int
